@@ -1,0 +1,56 @@
+"""DRAGON in PyTorch: DGen, DSim, DOpt and population evaluation, with
+hand-written CUDA kernels for Hopper.
+
+    from repro_torch import TechParams, ArchParams, get_workload, simulate
+
+    g = get_workload("bert_base")          # on the card
+    perf = simulate(TechParams.default(), ArchParams.default(), g)
+
+Every constructor that makes tensors takes ``device=None``, meaning the card;
+it raises when no GPU is present.  Pass ``device="cpu"`` to run the plain
+PyTorch versions of the kernels on the CPU.
+
+Names are imported lazily, so ``import repro_torch`` itself is cheap.
+"""
+from __future__ import annotations
+
+_EXPORTS = {
+    "ArchParams": "repro_torch.core.params",
+    "ArchSpec": "repro_torch.core.params",
+    "TechParams": "repro_torch.core.params",
+    "Graph": "repro_torch.core.graph",
+    "GraphBuilder": "repro_torch.core.graph",
+    "ConcreteHW": "repro_torch.core.dgen",
+    "specialize": "repro_torch.core.dgen",
+    "MapperCfg": "repro_torch.core.mapper",
+    "map_workload": "repro_torch.core.mapper",
+    "PerfEstimate": "repro_torch.core.dsim",
+    "simulate": "repro_torch.core.dsim",
+    "simulate_stacked": "repro_torch.core.dsim",
+    "stacked_log_objective": "repro_torch.core.dsim",
+    "mixed_log_objective": "repro_torch.core.dsim",
+    "optimize": "repro_torch.core.dopt",
+    "OptResult": "repro_torch.core.dopt",
+    "get_workload": "repro_torch.workloads",
+    "lm_cell": "repro_torch.workloads",
+    "WORKLOAD_FAMILIES": "repro_torch.workloads",
+    "pack_chw": "repro_torch.kernels.ops",
+    "pack_graph": "repro_torch.kernels.ops",
+    "popsim": "repro_torch.kernels.ops",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        import importlib
+
+        value = getattr(importlib.import_module(_EXPORTS[name]), name)
+        globals()[name] = value  # cache: __getattr__ only fires on misses
+        return value
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted({*globals(), *__all__})

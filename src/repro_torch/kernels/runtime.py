@@ -1,0 +1,183 @@
+"""Device selection, kernel build/load and launch accounting for the port.
+
+This is the one module of ``repro_torch`` that compiles or loads CUDA code.
+
+  * :func:`default_device` — the card; raises when no GPU is present, so an
+    entry point called without ``device=`` never silently runs on the CPU.
+  * :func:`resolve_device` — ``None`` → :func:`default_device`, else the
+    caller's device; a CUDA device also pins float32 matmuls to full
+    precision (TF32 off), the numerics the reference runs with.
+  * :func:`library` — build (at first use) and load the shared library of
+    one kernel source under ``csrc/``.  Every source is compiled by its own
+    ``nvcc`` process, all started together, into ``build/repro_torch_ext/``
+    at the repo root (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by a hash
+    of the source, the torch version, the nvcc version and the flags.  The
+    kernels expose a plain C interface and are bound with ``ctypes``: no
+    PyTorch header is compiled, so a cold build takes seconds, not minutes.
+    A build or launch failure raises; nothing falls back to a plain version.
+  * :data:`LAUNCHES` / :func:`reset_launches` — one count per kernel, bumped
+    by its wrapper exactly where it launches the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# kernel name -> source file under csrc/
+SOURCES = {"affine_scan": "affine_scan.cu", "popsim": "popsim.cu"}
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+    "--shared", "-Xcompiler", "-fPIC",
+    # no contraction into FMAs and no fast math: IEEE '/', ceilf and
+    # denormals behave as in the plain PyTorch versions the kernels are
+    # held against (a one-ulp move upstream of a ceil moves whole cycles)
+    "--fmad=false", "-Xptxas", "-v",
+)
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+BUILD_LOG: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its build
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+# --------------------------------------------------------------------------- #
+# devices
+# --------------------------------------------------------------------------- #
+
+
+def default_device() -> torch.device:
+    """The card.  Raises when PyTorch sees no CUDA device: the port runs on
+    the CPU only when the caller asks for it explicitly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: no CUDA device is available; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    dev = default_device() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+# --------------------------------------------------------------------------- #
+# launch accounting
+# --------------------------------------------------------------------------- #
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------- #
+# build + load
+# --------------------------------------------------------------------------- #
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("repro_torch: nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _nvcc_version(nvcc: str) -> str:
+    return subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
+
+
+def _target(name: str, nvcc_version: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    h.update((CSRC / SOURCES[name]).read_bytes())
+    for part in (torch.__version__, nvcc_version, " ".join(NVCC_FLAGS)):
+        h.update(part.encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, pathlib.Path]:
+    """Compile every kernel source whose keyed binary is missing, one nvcc
+    process per source, all running at once.  Returns name -> binary path.
+    Every process is waited for before any failure is raised."""
+    nvcc = nvcc_path()
+    ver = _nvcc_version(nvcc)
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name, ver) for name in SOURCES}
+    procs = {}
+    for name, tgt in targets.items():
+        if tgt.exists():
+            continue
+        tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        BUILD_LOG[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[name]}:\n{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("repro_torch: " + "\n".join(failed))
+    return targets
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "affine_scan":
+        fn = lib.affine_scan_launch
+        fn.argtypes = [p, p, i, i, f, i, p]
+    else:
+        fn = lib.popsim_launch
+        fn.argtypes = [p, p, p, i, i, p]
+    fn.restype = i
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name`` (built at first use)."""
+    with _LOCK:
+        if name not in _LIBS:
+            for n, path in build_all().items():
+                if n not in _LIBS:
+                    lib = ctypes.CDLL(str(path))
+                    _bind(n, lib)
+                    _LIBS[n] = lib
+        return _LIBS[name]
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a refused launch (the C entry returns cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"repro_torch: launch of kernel {name!r} failed with CUDA error {err}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
