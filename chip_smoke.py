@@ -11,9 +11,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    hold sm_90a code;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    on inputs from torch.Generator("cuda").manual_seed(0), at the shapes the
-   main path gives it; each one's device time per launch (torch.profiler over
-   many launches) and its time per call with the host path (CUDA events);
-4. main path, with the launch counts set to 0 just before and read just after:
+   main paths give it; each one's device time per launch (torch.profiler over
+   many launches), its plain version's, and for attention the time of
+   PyTorch's scaled_dot_product_attention on the same inputs (a yardstick the
+   port never calls);
+4. the simulator path, with the launch counts set to 0 just before and read
+   just after:
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
       design, each padded to its vertex bucket (next power of two, >= 32),
       with the default MapperCfg(), and hold cycles against ``cycles_dsim``;
@@ -22,7 +25,16 @@ Phases (each raises on failure, so any failure exits non-zero):
    c. 3 steps on the 11 classic workloads (bucket 256) with scan_impl="ref"
       and with the default, which must agree;
    d. evaluate a population of 65,536 designs on qwen2.5-32b:prefill_32k and
-      hold the default design's cycles against the simulator's.
+      hold the default design's cycles against the simulator's;
+5. the serving path, with the launch counts set to 0 just before and read
+   just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
+   (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
+   each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
+   (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each);
+6. agreement with the reference package at full width: the fixture
+   tests/data/torch_ssm_ref.npz (made by tools/make_torch_ssm_ref.py from the
+   JAX models on the same numpy weights) against this package on the card in
+   float32: prefill logits and 8 teacher-forced decode steps.
 
 The last two lines are a JSON ``kernels`` record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -30,6 +42,8 @@ checkout of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -40,10 +54,28 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and float32 rate
-# outside the tensor cores; used for each kernel's lower bound
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 rate
+# outside the tensor cores, dense bf16 tensor-core rate; used for each
+# kernel's lower bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+
+SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b")
+SERVE_PROMPTS = (4096, 1000, 257, 64)  # tokens; two slots, so slots are reused
+SERVE_NEW_TOKENS = 16
+SERVE_MAX_LEN = 4608
+FIXTURE = ROOT / "tests" / "data" / "torch_ssm_ref.npz"
+# Agreement with the fixture, float32 on both sides, measured as max |logit
+# difference| at the fixture's top-64 indices over the step's largest |logit|.
+# The bound of an entry is AGREE_FACTOR times the reference's own spread (how
+# far the JAX model moves when one weight matrix moves by one ulp, stored in
+# the fixture), and never below AGREE_FLOOR.  On the CPU the port came within
+# 1.4-1.6x the spread of every entry (zamba2 at 38 and 6 layers, falcon-mamba at
+# 2: max rel 0.081, 4.5e-5 and 4.0e-6 against spreads 0.056, 2.8e-5 and
+# 2.7e-6); the card sums in other orders again, hence the factor.
+AGREE_FACTOR = 4.0
+AGREE_FLOOR = 3e-5
 
 CLASSIC = ["resnet50", "vgg16", "lstm", "dlrm", "bert_base", "bert_large",
            "gcn", "graphsage", "stencil2d", "merge_sort", "bfs_graph"]
@@ -189,7 +221,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     paths = runtime.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(paths)} kernels")
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(paths)} kernels; each: "
+          + ", ".join(f"{n} {s:.1f} s" for n, s in runtime.BUILD_SECONDS.items()))
     for name, log in runtime.BUILD_LOG.items():
         for line in log.strip().splitlines():
             print(f"  {name}: {line}")
@@ -267,6 +300,233 @@ def phase_kernels(device) -> dict:
             (k2["ms"], k2["ms_method"]), (k2["plain_ms"], _) = device_ms(kern, 20, "popsim_kernel"), device_ms(plain, 1)
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
     return {"affine_scan": k1, "popsim": k2}
+
+
+def _close(got, want, atol: float, rtol: float, what: str) -> float:
+    """Raise unless |got - want| <= atol + rtol*|want| everywhere (and got is
+    finite); return the max abs error."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(torch.all(err <= atol + rtol * want.float().abs()))
+    check(ok, f"{what} off its plain version by {float(err.max())} (atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+# float32 tolerances are the reference's own (tests/test_kernels.py), with a
+# relative term for outputs of larger magnitude; a bf16 output is rounded from
+# float32 by the kernel and by the plain version alike, so they may differ by
+# one bf16 step: 2e-2, the reference's bf16 attention bound
+def _tol(dtype, f32_atol: float) -> dict:
+    import torch
+
+    return dict(atol=f32_atol, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+
+
+def phase_model_kernels(device) -> dict:
+    """K3-K5 against their plain versions at the serving path's shapes
+    (S = 4096 and the ragged 257, bf16 and f32); returns their records, timed
+    at S = 4096 in bf16 (the serving path's dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, ssd, sscan
+
+    gen = torch.Generator(device.type).manual_seed(0)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+    rec = {}
+
+    # K3: zamba2's shared block, 32 heads of 64 (MHA); also GQA group 4 with Sq < Skv
+    err = 0.0
+    for (Hq, Hkv, Sq, Skv) in ((32, 32, 4096, 4096), (32, 32, 257, 257), (32, 8, 1000, 4096)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = randn(1, Hq, Sq, 64).to(dtype), randn(1, Hkv, Skv, 64).to(dtype), randn(1, Hkv, Skv, 64).to(dtype)
+            got = fa.flash_attention(q, k, v, causal=True)
+            e = _close(got, ref.reference_attention(q, k, v, causal=True), **_tol(dtype, 2e-5),
+                       what=f"flash_attention Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} {dtype}")
+            err = max(err, e)
+            print(f"  flash_attention q[1,{Hq},{Sq},64] kv[1,{Hkv},{Skv},64] {str(dtype)[6:]}: max abs err {e:.3g}")
+    q, k, v = (randn(1, 32, 4096, 64).to(torch.bfloat16) for _ in range(3))
+    kern = lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5)  # noqa: E731
+    rec["flash_attention"] = dict(  # q, k, v in and o out, bf16
+        max_abs_err=err, bytes=4 * q.numel() * 2, ops=fa.operations(1, 32, 4096, 4096, 64, True),
+        peak=BF16_TC_OPS_PER_S,
+        ms=device_ms(kern, 20, "flash_attention_kernel"),
+        plain_ms=device_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+
+    # K4: zamba2's Mamba2 layers: x [1,S,64,64], dt [1,S,64], A [64], B, C [1,S,64]
+    err = 0.0
+    for S in (4096, 257):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(1, S, 64, 64).to(dtype)
+            dt = F.softplus(randn(1, S, 64))
+            A = -torch.exp(randn(64))
+            Bm, Cm = randn(1, S, 64), randn(1, S, 64)
+            y, st = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm)
+            y_ref, st_ref = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=ssd.CHUNK)
+            e = max(_close(y, y_ref, **_tol(dtype, 1e-4), what=f"ssd_chunk_scan y S={S} {dtype}"),
+                    _close(st, st_ref, atol=1e-4, rtol=1e-4, what=f"ssd_chunk_scan state S={S} {dtype}"))
+            err = max(err, e)
+            print(f"  ssd_chunk_scan x[1,{S},64,64] {str(dtype)[6:]}: y and final state max abs err {e:.3g}")
+    x = randn(1, 4096, 64, 64).to(torch.bfloat16)
+    dt, A, Bm, Cm = F.softplus(randn(1, 4096, 64)), -torch.exp(randn(64)), randn(1, 4096, 64), randn(1, 4096, 64)
+    rec["ssd_chunk_scan"] = dict(
+        # x in and y out in bf16; dt, A, B, C in and the final state [1,64,64,64] out in f32
+        max_abs_err=err, bytes=2 * x.numel() * 2 + (dt.numel() + A.numel() + 2 * Bm.numel() + 64 * 64 * 64) * 4,
+        ops=ssd.operations(1, 4096, 64, 64, 64), peak=FP32_OPS_PER_S,
+        ms=device_ms(lambda: ssd.ssd_chunk_scan_op(x, dt, A, Bm, Cm), 20, "ssd_chunk_scan_kernel"),
+        plain_ms=device_ms(lambda: ref.ssd_scan(x, dt, A, Bm, Cm, chunk=ssd.CHUNK), 3), library_ms=None)
+
+    # K5: falcon-mamba's Mamba1 layers: u, dt [1,S,8192], A [8192,16], B, C [1,S,16], D [8192]
+    err = 0.0
+    for S in (4096, 257):
+        for dtype in (torch.bfloat16, torch.float32):
+            u = randn(1, S, 8192).to(dtype)
+            dt = F.softplus(randn(1, S, 8192))
+            A = -torch.exp(randn(8192, 16))
+            Bm, Cm, D = randn(1, S, 16), randn(1, S, 16), randn(8192)
+            y, st = sscan.selective_scan(u, dt, A, Bm, Cm, D)
+            y_ref, st_ref = ref.selective_scan(u, dt, A, Bm, Cm, D)
+            e = max(_close(y, y_ref, **_tol(dtype, 2e-4), what=f"selective_scan y S={S} {dtype}"),
+                    _close(st, st_ref, atol=2e-4, rtol=1e-4, what=f"selective_scan state S={S} {dtype}"))
+            err = max(err, e)
+            print(f"  selective_scan u[1,{S},8192] N=16 {str(dtype)[6:]}: y and final state max abs err {e:.3g}")
+    u = randn(1, 4096, 8192).to(torch.bfloat16)
+    dt, A = F.softplus(randn(1, 4096, 8192)), -torch.exp(randn(8192, 16))
+    Bm, Cm, D = randn(1, 4096, 16), randn(1, 4096, 16), randn(8192)
+    rec["selective_scan"] = dict(
+        # u in and y out in bf16; dt, A, B, C, D in and the final state [1,8192,16] (A's size) out in f32
+        max_abs_err=err,
+        bytes=2 * u.numel() * 2 + (dt.numel() + A.numel() + 2 * Bm.numel() + D.numel() + A.numel()) * 4,
+        ops=sscan.selective_scan_operations(1, 4096, 8192, 16), peak=FP32_OPS_PER_S,
+        ms=device_ms(lambda: sscan.selective_scan_op(u, dt, A, Bm, Cm, D), 20, "selective_scan_kernel"),
+        plain_ms=device_ms(lambda: ref.selective_scan(u, dt, A, Bm, Cm, D), 3), library_ms=None)
+    for r in rec.values():  # (ms, method) pairs -> ms
+        r["ms_method"] = r["ms"][1]
+        r["ms"], r["plain_ms"] = r["ms"][0], r["plain_ms"][0]
+        if r["library_ms"] is not None:
+            r["library_ms"] = r["library_ms"][0]
+    return rec
+
+
+def phase_serve(device) -> None:
+    """Each SSM-family model at full width and depth behind the token engine."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, Request
+
+    for name in SERVE_MODELS:
+        cfg = get_config(name)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=device)
+        torch.cuda.synchronize()
+        print(f"  serve {name}: {model.param_count() / 1e9:.3f} B parameters drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        eng = Engine(model, params, slots=2, max_len=SERVE_MAX_LEN, device=device)
+        del params  # the engine keeps the cast copy
+        torch.cuda.synchronize()
+        loaded = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rng = np.random.default_rng(0)
+        for rid, n in enumerate(SERVE_PROMPTS):
+            eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n), max_tokens=SERVE_NEW_TOKENS))
+        decode_ms, n_steps, busy, n_kern, profiled_ms = [], 0, 0.0, 0, 0.0
+        t_start = time.perf_counter()
+        while eng.queue or any(r is not None for r in eng.slot_req):
+            admitted = [r for r in eng.queue[:eng.slot_req.count(None)]]
+            t0 = time.perf_counter()
+            if n_steps == 1:  # a pure decode step (both slots busy, two requests waiting)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    eng.step()
+                    torch.cuda.synchronize()
+                    profiled_ms = (time.perf_counter() - t0) * 1e3
+                rows = device_rows(prof)
+                busy, n_kern = sum(r[0] for r in rows), sum(r[1] for r in rows)
+            else:
+                eng.step()
+                torch.cuda.synchronize()
+                decode_ms.append((time.perf_counter() - max([t0] + [r.t_first for r in admitted])) * 1e3)
+            n_steps += 1
+        wall = time.perf_counter() - t_start
+        done = sorted(eng.finished, key=lambda r: r.rid)
+        check(len(done) == len(SERVE_PROMPTS), f"{name}: {len(done)} of {len(SERVE_PROMPTS)} requests finished")
+        for r in done:
+            check(len(r.generated) == SERVE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.generated),
+                  f"{name}: request {r.rid} generated {r.generated}")
+        check(all(bool(torch.isfinite(v.float()).all()) for k, v in eng.cache.items() if k != "len"),
+              f"{name}: non-finite values in the decode cache")
+        n_tok = sum(len(r.generated) for r in done)
+        print(f"  serve {name}: prefill ms by prompt length: "
+              + ", ".join(f"{len(r.prompt)}: {(r.t_first - r.t_admit) * 1e3:.2f}" for r in done))
+        print(f"  serve {name}: decode ms per engine step (2 slots): median {statistics.median(decode_ms):.3f}, "
+              f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f} over {len(decode_ms)} steps")
+        print(f"  serve {name}: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.2f} generated tokens/s end to end "
+              f"(prefills included); {n_steps} engine steps")
+        print(f"  serve {name}: device memory {loaded / 2**30:.2f} GiB after load (cast weights and cache), "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while serving")
+        if busy > 0:
+            med = statistics.median(decode_ms)
+            print(f"  serve {name}: one profiled decode step: {n_kern} kernels, device busy {busy:.3f} ms (wall "
+                  f"{profiled_ms:.3f} ms "
+                  f"under the profiler); idle share {max(0.0, 1 - busy / med):.3f} of the unprofiled median step "
+                  f"({med:.3f} ms)")
+        else:
+            print(f"  serve {name}: decode-step idle share not measured (the profiler saw no device time)")
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_agree(device) -> None:
+    """This package on the card, float32, against the reference's fixture."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_from_numpy
+
+    ref = np.load(FIXTURE)
+    for key in [str(k) for k in ref["entries"]]:
+        name, n_layers = str(ref[f"{key}/name"]), int(ref[f"{key}/n_layers"])
+        cfg = dataclasses.replace(get_config(name), dtype="float32", n_layers=n_layers)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = params_from_numpy(cfg, model.init_numpy(int(ref[f"{key}/seed"])), device)
+        t_init = time.perf_counter() - t0
+        prompt = torch.as_tensor(ref[f"{key}/prompt"], device=device)[None]
+        tokens, top_idx, top_val = ref[f"{key}/tokens"], ref[f"{key}/top_idx"], ref[f"{key}/top_val"]
+        bound = max(AGREE_FLOOR, AGREE_FACTOR * float(np.max(ref[f"{key}/spread"])))
+        logits, cache = model.prefill(params, prompt, max_len=prompt.shape[1] + len(tokens))
+        steps = [logits[0]]
+        for t in tokens[:-1]:  # teacher-forced with the fixture's greedy tokens
+            logits, cache = model.decode_step(params, torch.tensor([[int(t)]], device=device), cache)
+            steps.append(logits[0])
+        worst, checked = 0.0, 0
+        for i, lg in enumerate(steps):
+            lg = lg.double().cpu().numpy()
+            check(bool(np.all(np.isfinite(lg))), f"{key} step {i}: non-finite logits")
+            scale = float(np.max(np.abs(top_val[i])))
+            rel = float(np.max(np.abs(lg[top_idx[i]] - top_val[i]))) / scale
+            worst = max(worst, rel)
+            check(rel <= bound, f"{key} step {i}: logits off the fixture by rel {rel:.3g} (bound {bound:.3g})")
+            if float(top_val[i][0] - top_val[i][1]) / scale > bound:
+                checked += 1
+                check(int(lg.argmax()) == int(tokens[i]),
+                      f"{key} step {i}: greedy token {int(lg.argmax())}, fixture {int(tokens[i])}")
+        print(f"  agree {key} (float32, weights made in {t_init:.1f} s): prefill + {len(tokens) - 1} decode steps "
+              f"within rel {worst:.3g} of the fixture (bound {bound:.3g}, the reference's own spread "
+              f"{float(np.max(ref[f'{key}/spread'])):.3g}); greedy tokens equal at the {checked} of {len(steps)} "
+              f"steps whose top-2 margin exceeds the bound")
+        del params, cache, model
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_simulate(device) -> None:
@@ -391,6 +651,36 @@ def phase_profile(device) -> None:
               + "; ".join(f"{k[:48]} {t:.4f} ms x{c}" for t, c, k in top))
 
 
+SIM_KERNELS = ("affine_scan", "popsim")
+SERVE_KERNELS = ("flash_attention", "ssd_chunk_scan", "selective_scan")
+META = {  # kernel -> (source, the TPU kernel it replaces)
+    "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
+    "popsim": ("src/repro_torch/kernels/csrc/popsim.cu", "src/repro/kernels/popsim_kernel.py:152"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:88"),
+    "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:93"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu", "src/repro/kernels/sscan.py:70"),
+}
+
+
+def drive(name: str, phases, kernels) -> dict:
+    """Run one main path with the launch counts set to 0 just before and read
+    just after; fail unless each of its kernels was launched."""
+    import torch
+
+    from repro_torch.kernels import runtime
+
+    print(f"{name} path:")
+    runtime.reset_launches()
+    for phase in phases:
+        phase()
+    torch.cuda.synchronize()
+    launches = {k: runtime.LAUNCHES[k] for k in kernels}
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the {name} path")
+    print(f"{name}-path launches: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -399,40 +689,37 @@ def main() -> int:
         return 1
     from repro_torch.kernels import runtime
 
+    t_start = time.perf_counter()
     device = runtime.resolve_device(None)
     smi = phase_env()
     phase_build()
     print("kernels against their plain versions:")
     rec = phase_kernels(device)
+    rec.update(phase_model_kernels(device))
 
-    print("main path:")
-    runtime.reset_launches()
-    phase_simulate(device)
-    phase_optimize(device)
-    phase_population(device)
-    torch.cuda.synchronize()
-    launches = dict(runtime.LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    print(f"main-path launches: {launches}")
+    launches = drive("simulator", [lambda: phase_simulate(device), lambda: phase_optimize(device),
+                                   lambda: phase_population(device)], SIM_KERNELS)
+    launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
+    print("agreement with the reference package (fixture):")
+    phase_agree(device)
     print("where the time goes:")
     phase_profile(device)
 
-    meta = {
-        "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
-        "popsim": ("src/repro_torch/kernels/csrc/popsim.cu", "src/repro/kernels/popsim_kernel.py:152"),
-    }
     kernels = []
     for name, r in rec.items():
-        t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S * 1e3, r["ops"] / FP32_OPS_PER_S * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / r.get("peak", FP32_OPS_PER_S) * 1e3
         kernels.append(dict(
-            name=name, route="cuda", source=meta[name][0], replaces=meta[name][1],
+            name=name, route="cuda", source=META[name][0], replaces=META[name][1],
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None,
+            library_ms=r.get("library_ms"),
         ))
-        print(f"  {name}: device {r['ms']:.6f} ms ({r['ms_method']}), host path {r['host_ms']:.6f} ms per call; "
-              f"plain device {r['plain_ms']:.6f} ms, host path {r['plain_host_ms']:.6f} ms per call")
+        host = f", host path {r['host_ms']:.6f} ms per call" if "host_ms" in r else ""
+        print(f"  {name}: device {r['ms']:.6f} ms ({r['ms_method']}){host}; plain device {r['plain_ms']:.6f} ms"
+              + (f"; library {r['library_ms']:.6f} ms" if r.get("library_ms") is not None else "")
+              + f"; bound {max(t_bytes, t_ops):.6f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
+    print(f"command time: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-affine_scan — the mapper's bandwidth-EMA carry (``csrc/affine_scan.cu``)
-popsim      — DSim population evaluation (``csrc/popsim.cu``)
+affine_scan     — the mapper's bandwidth-EMA carry (``csrc/affine_scan.cu``)
+popsim          — DSim population evaluation (``csrc/popsim.cu``)
+flash_attention — GQA attention with an online softmax (``flash_attention.py``,
+                  ``csrc/flash_attention.cu``)
+ssd_chunk_scan  — the Mamba2 chunked SSD scan (``ssd.py``, ``csrc/ssd.cu``)
+selective_scan  — the Mamba1 selective scan (``sscan.py``, ``csrc/selective_scan.cu``)
 
 Each kernel has a plain PyTorch version in ref.py.  A wrapper launches its
 kernel on CUDA tensors (raising if the build or the launch fails) and runs

@@ -1,0 +1,82 @@
+"""Attention with grouped KV heads and an online softmax, as a hand-written
+CUDA kernel (``csrc/flash_attention.cu``).  Forward only.
+
+The op ``torch.ops.repro_torch.flash_attention`` launches the kernel on CUDA
+tensors and runs the plain version, ``ref.reference_attention``, on CPU
+tensors.  The kernel masks ragged Sq and Skv itself, so no block size has to
+divide the sequence.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.ref import reference_attention
+
+HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is compiled for
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of one type, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q [B,Hq,Sq,D], k and v [B,Hkv,Skv,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] == 0 or Hq % k.shape[1] or k.shape[2] == 0:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must be on one device")
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       scale: float) -> torch.Tensor:
+    """The plain version (CPU implementation of the op)."""
+    _check(q, k, v)
+    return reference_attention(q, k, v, causal=causal, scale=scale)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                          scale: float) -> torch.Tensor:
+    _check(q, k, v)
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    B, Hq, Sq, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} is not one of {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:  # nothing to attend, no launch
+        return out
+    lib = runtime.library("flash_attention")
+    runtime.count_launch("flash_attention")
+    err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+                                     k.shape[1], Sq, k.shape[2], D, int(causal), float(scale),
+                                     int(q.dtype == torch.bfloat16), runtime.stream_handle(q))
+    runtime.check_launch("flash_attention", err)
+    return out
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, scale):
+    return torch.empty_like(q)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in q's type.
+    KV head of q head h is ``h // (Hq // Hkv)``; the causal mask is suffix-causal
+    with offset ``Skv - Sq``; the scale defaults to ``D ** -0.5``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(), causal, float(scale))
+
+
+def operations(B: int, Hq: int, Sq: int, Skv: int, D: int, causal: bool) -> int:
+    """Multiply-adds of the two products, counted as two operations each, over
+    the (query, key) pairs the mask keeps, plus one exp per kept pair."""
+    off = Skv - Sq
+    pairs = sum(max(0, min(Skv, i + off + 1)) for i in range(Sq)) if causal else Sq * Skv
+    return B * Hq * pairs * (4 * D + 1)

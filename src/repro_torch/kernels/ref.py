@@ -8,8 +8,11 @@ kernels and are no yardstick of speed.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import popsim_kernel as pk
+
+NEG_INF = -1e30  # finite mask value of the attention kernel and its plain version
 
 
 def affine_scan_reference(decay: float, add: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -128,3 +131,122 @@ def popsim_reference(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> to
         t_exp_acc = t_exp_acc + t_exposed
         tiles_acc = tiles_acc + tiles * active
     return torch.stack([cycles, e_dyn, t_comp_acc, t_mem_acc, t_exp_acc, tiles_acc, zeros, zeros], -1)
+
+
+# --------------------------------------------------------------------------- #
+# the model kernels: attention, the Mamba2 SSD scan, the Mamba1 selective scan
+# --------------------------------------------------------------------------- #
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Dense attention with grouped KV heads and a float32 softmax.
+    q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D]; the mask is suffix-causal
+    (query i sees key j when j <= i + Skv - Sq) with the finite -1e30."""
+    Hq, Sq, D = q.shape[1:]
+    Hkv, Skv = k.shape[1:3]
+    group = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril(Skv - Sq)
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def _pad_steps(chunk: int, *xs: torch.Tensor) -> tuple[int, list[torch.Tensor]]:
+    """Zero-pad axis 1 of each array up to a multiple of ``chunk``.  With
+    dt = 0 a padded step of either scan is the identity."""
+    S = xs[0].shape[1]
+    pad = -S % chunk
+    out = []
+    for x in xs:
+        x = x.float()
+        if pad:
+            x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad))
+        out.append(x)
+    return (S + pad) // chunk, out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba2): intra-chunk products and an inter-chunk state carry.
+    x [B, S, H, P], dt [B, S, H], A [H], B and C [B, S, N].  Returns
+    (y [B, S, H, P] in x's type, final state [B, H, N, P] float32).  Any S: the
+    last chunk is padded with zero steps."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc, (xf, dtf, Bf, Cf) = _pad_steps(chunk, x, dt, Bm, Cm)
+    Af = A.float()
+    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(dtc * Af, 1)  # [B, L, H] log-decay from the chunk's start
+        total = cum[:, -1]
+        y_in = torch.einsum("bth,btn,bhnp->bthp", cum.exp(), Cc, state)
+        li = cum[:, :, None, :] - cum[:, None, :, :]  # [B, t, s, H]
+        # the decay only where t >= s: above the diagonal exp would overflow to inf
+        decay = li.masked_fill(~mask[None, :, :, None], float("-inf")).exp()
+        cb = torch.einsum("btn,bsn->bts", Cc, Bc)
+        w = decay * cb[..., None] * dtc[:, None, :, :]
+        y_intra = torch.einsum("btsh,bshp->bthp", w, xc)
+        g = torch.exp(total[:, None] - cum)
+        ds = torch.einsum("bsh,bsn,bshp->bhnp", g * dtc, Bc, xc)
+        state = total.exp()[..., None, None] * state + ds
+        ys.append(y_in + y_intra)
+    y = torch.cat(ys, 1)[:, :S] if ys else xf[:, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                  C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-step recurrence that SSD reformulates (the test oracle):
+    state_t = exp(dt_t A_h) state_{t-1} + dt_t (B_t outer x_t);  y_t = C_t . state_t."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), Bm.float(), C.float(), A.float()
+    state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None])  # [B, H]
+        upd = dtf[:, t, :, None, None] * (Bf[:, t, None, :, None] * xf[:, t, :, None, :])
+        state = decay[..., None, None] * state + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], state))
+    y = torch.stack(ys, 1) if ys else xf
+    return y.to(x.dtype), state
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   D: torch.Tensor, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba1 selective scan: a log-step doubling scan of the affine
+    pairs (exp(dt A), dt u B) inside each chunk, the state carried across.
+    u and dt [B, S, C], A [C, N], B and C [B, S, N], D [C].  Returns
+    (y [B, S, C] in u's type, final state [B, C, N] float32).  Any S."""
+    B_, S, C = u.shape
+    N = A.shape[1]
+    nc, (uf, dtf, Bf, Cf) = _pad_steps(chunk, u, dt, Bm, Cm)
+    Af = A.float()
+    state = torch.zeros(B_, C, N, dtype=torch.float32, device=u.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        uc, dtc, Bc, Cc = uf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        a = torch.exp(dtc[..., None] * Af)  # [B, L, C, N]
+        b = (dtc * uc)[..., None] * Bc[:, :, None, :]
+        d = 1
+        while d < chunk:  # (a1, b1) then (a2, b2) compose to (a1 a2, a2 b1 + b2)
+            b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], 1)
+            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+            d *= 2
+        s = a * state[:, None] + b
+        ys.append(torch.einsum("btcn,btn->btc", s, Cc))
+        state = s[:, -1]
+    y = torch.cat(ys, 1)[:, :S] if ys else uf[:, :S]
+    y = y + uf[:, :S] * D.float()
+    return y.to(u.dtype), state

@@ -27,23 +27,38 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file under csrc/
-SOURCES = {"affine_scan": "affine_scan.cu", "popsim": "popsim.cu"}
+SOURCES = {
+    "affine_scan": "affine_scan.cu",
+    "popsim": "popsim.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_chunk_scan": "ssd.cu",
+    "selective_scan": "selective_scan.cu",
+}
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-    "--shared", "-Xcompiler", "-fPIC",
-    # no contraction into FMAs and no fast math: IEEE '/', ceilf and
-    # denormals behave as in the plain PyTorch versions the kernels are
-    # held against (a one-ulp move upstream of a ceil moves whole cycles)
-    "--fmad=false", "-Xptxas", "-v",
+    "--shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per-kernel additions.  The simulator's kernels are built with no contraction
+# into FMAs (and no fast math anywhere): IEEE '/', ceilf and denormals behave
+# as in the plain PyTorch versions they are held against, where a one-ulp move
+# upstream of a ceil moves whole cycles.  The model kernels keep nvcc's default
+# contraction: they are held against their plain versions with a tolerance.
+EXTRA_FLAGS = {"affine_scan": ("--fmad=false",), "popsim": ("--fmad=false",)}
+
+
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 BUILD_LOG: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its build
+BUILD_SECONDS: dict[str, float] = {}  # kernel name -> seconds from the builds' start to its end
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -117,7 +132,7 @@ def _nvcc_version(nvcc: str) -> str:
 def _target(name: str, nvcc_version: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update((CSRC / SOURCES[name]).read_bytes())
-    for part in (torch.__version__, nvcc_version, " ".join(NVCC_FLAGS)):
+    for part in (torch.__version__, nvcc_version, " ".join(flags(name))):
         h.update(part.encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -132,15 +147,22 @@ def build_all() -> dict[str, pathlib.Path]:
     out.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(name, ver) for name in SOURCES}
     procs = {}
+    t0 = time.perf_counter()
     for name, tgt in targets.items():
         if tgt.exists():
             continue
         tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+
+    def wait(name: str) -> None:  # one thread per process, so each one's finish is timed
+        BUILD_LOG[name], _ = procs[name][0].communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        list(pool.map(wait, procs))
     failed = []
     for name, (proc, tmp) in procs.items():
-        BUILD_LOG[name], _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {SOURCES[name]}:\n{BUILD_LOG[name]}")
         else:
@@ -150,15 +172,26 @@ def build_all() -> dict[str, pathlib.Path]:
     return targets
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel name -> (C entry point, its argument types); every entry returns the
+# cudaError_t of its launch as an int
+_ENTRY = {
+    "affine_scan": ("affine_scan_launch", [_P, _P, _I, _I, _F, _I, _P]),
+    "popsim": ("popsim_launch", [_P, _P, _P, _I, _I, _P]),
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, bf16, stream
+    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    # x, dt, A, B, C, y, state, Bt, S, H, P, N, bf16, stream
+    "ssd_chunk_scan": ("ssd_chunk_scan_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream
+    "selective_scan": ("selective_scan_launch", [_P] * 8 + [_I] * 5 + [_P]),
+}
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "affine_scan":
-        fn = lib.affine_scan_launch
-        fn.argtypes = [p, p, i, i, f, i, p]
-    else:
-        fn = lib.popsim_launch
-        fn.argtypes = [p, p, p, i, i, p]
-    fn.restype = i
+    entry, argtypes = _ENTRY[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = _I
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,0 +1,84 @@
+"""The Mamba2 chunked SSD scan as a hand-written CUDA kernel (``csrc/ssd.cu``).
+
+The op ``torch.ops.repro_torch.ssd_chunk_scan`` launches the kernel on CUDA
+tensors and runs the plain version, ``ref.ssd_scan``, on CPU tensors.  Both
+return the output and the final state.  The chunk length is the kernel's own
+(``CHUNK``): the chunked form is exact for any chunk, and a ragged last chunk
+is masked, so any sequence length works.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.ref import ssd_scan
+
+CHUNK = 64  # csrc/ssd.cu's kChunk
+MAX_WIDTH = 128  # N and P the kernel's shared memory holds
+
+
+def _check(x, dt, A, Bm, Cm) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_chunk_scan takes float32 or bfloat16 x, got {x.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, Bm, Cm)):
+        raise TypeError("ssd_chunk_scan takes float32 dt, A, B and C")
+    if x.ndim != 4:
+        raise ValueError(f"ssd_chunk_scan takes x [B,S,H,P], got {tuple(x.shape)}")
+    Bt, S, H, _ = x.shape
+    if (tuple(dt.shape) != (Bt, S, H) or tuple(A.shape) != (H,) or Bm.ndim != 3
+            or tuple(Bm.shape[:2]) != (Bt, S) or Cm.shape != Bm.shape):
+        raise ValueError(f"ssd_chunk_scan: dt {tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(Bm.shape)}, "
+                         f"C {tuple(Cm.shape)} do not fit x {tuple(x.shape)}")
+    if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
+        raise ValueError("ssd_chunk_scan: all inputs must be on one device")
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_scan", mutates_args=(), device_types="cpu")
+def ssd_chunk_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                      Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version (CPU implementation of the op)."""
+    _check(x, dt, A, Bm, Cm)
+    return ssd_scan(x, dt, A, Bm, Cm, chunk=CHUNK)
+
+
+@ssd_chunk_scan_op.register_kernel("cuda")
+def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                         Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    _check(x, dt, A, Bm, Cm)
+    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
+        raise ValueError("ssd_chunk_scan: inputs must be contiguous")
+    Bt, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if not (0 < P <= MAX_WIDTH and 0 < N <= MAX_WIDTH):
+        raise ValueError(f"ssd_chunk_scan: P={P}, N={N} must lie in 1..{MAX_WIDTH}")
+    y = torch.empty_like(x)
+    state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    if Bt * H == 0:  # no (batch, head) to scan, no launch
+        return y, state
+    lib = runtime.library("ssd_chunk_scan")
+    runtime.count_launch("ssd_chunk_scan")
+    err = lib.ssd_chunk_scan_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                                    y.data_ptr(), state.data_ptr(), Bt, S, H, P, N,
+                                    int(x.dtype == torch.bfloat16), runtime.stream_handle(x))
+    runtime.check_launch("ssd_chunk_scan", err)
+    return y, state
+
+
+@ssd_chunk_scan_op.register_fake
+def _ssd_chunk_scan_fake(x, dt, A, Bm, Cm):
+    Bt, _, H, P = x.shape
+    return torch.empty_like(x), x.new_empty((Bt, H, Bm.shape[-1], P), dtype=torch.float32)
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, H, P], dt [B, S, H] (after softplus), A [H] (negative), B and C
+    [B, S, N] -> (y [B, S, H, P] in x's type, final state [B, H, N, P] float32)."""
+    return ssd_chunk_scan_op(x.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(), Cm.contiguous())
+
+
+def operations(Bt: int, S: int, H: int, P: int, N: int) -> int:
+    """Operations of the recurrence (not of the chunked form's redundant
+    products): per step and head, exp(dt A) (2), dt*x (P), the state update
+    decay*s + (dt x) B (3 N P) and y = C . s (2 N P)."""
+    return Bt * S * H * (2 + P + 5 * N * P)

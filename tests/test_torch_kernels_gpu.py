@@ -55,6 +55,109 @@ def test_popsim_kernel_matches_plain(cuda, P):
     torch.testing.assert_close(got, ref.popsim_reference(gp, cp), rtol=1e-5, atol=1e-3)
 
 
+# ---------------------------------------------------------------------------
+# the model kernels: attention, the SSD scan, the selective scan
+# ---------------------------------------------------------------------------
+
+# float32: the reference's own tolerances (tests/test_kernels.py); the kernels
+# sum in another order than the plain versions, so a relative term covers
+# outputs of larger magnitude.  bfloat16 outputs are rounded from float32 in
+# both, so they may differ by a bf16 step: 2e-2, the reference's bf16 bound.
+_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+ATTN_SHAPES = [
+    # B, Hq, Hkv, Sq, Skv, D
+    (1, 4, 4, 128, 128, 64),     # MHA
+    (2, 8, 2, 256, 256, 64),     # GQA 4:1
+    (1, 8, 1, 128, 128, 32),     # MQA
+    (2, 4, 4, 64, 256, 64),      # suffix window, Sq < Skv
+    (1, 32, 32, 257, 257, 64),   # zamba2's shared block at a ragged prompt
+    (1, 8, 2, 100, 333, 64),     # ragged, GQA
+    (2, 4, 2, 70, 50, 16),       # Sq > Skv: early rows see no key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, runtime
+
+    gen = torch.Generator("cuda").manual_seed(Sq * 131 + Skv)
+    q, k, v = (torch.randn(B, h, s, D, generator=gen, device=cuda).to(dtype)
+               for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    before = runtime.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal).float(), **_TOL[dtype])
+
+
+def _ssd_inputs(gen, dev, B, S, H, P, N, dtype):
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev))
+    Bm, Cm = (torch.randn(B, S, N, generator=gen, device=dev) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 64, 2, 16, 8), (2, 128, 4, 32, 16), (1, 32, 1, 64, 4),
+                                       (1, 257, 4, 64, 64), (2, 1, 3, 16, 8), (1, 100, 2, 128, 128)])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
+    from repro_torch.kernels import ref, runtime, ssd
+
+    gen = torch.Generator("cuda").manual_seed(S * 7 + H)
+    args = _ssd_inputs(gen, cuda, B, S, H, P, N, dtype)
+    before = runtime.LAUNCHES["ssd_chunk_scan"]
+    y, state = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["ssd_chunk_scan"] == before + 1
+    y_ref, s_ref = ref.ssd_reference(*args)  # the per-step recurrence
+    # SSD's own tolerance (atol 1e-4, tests/test_kernels.py), relative for large states
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=1e-4)
+
+
+def _scan_inputs(gen, dev, B, S, C, N, dtype):
+    u = torch.randn(B, S, C, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, C, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(C, N, generator=gen, device=dev))
+    Bm, Cm = (torch.randn(B, S, N, generator=gen, device=dev) for _ in range(2))
+    D = torch.randn(C, generator=gen, device=dev)
+    return u, dt, A, Bm, Cm, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,C,N", [(1, 32, 16, 8), (2, 64, 32, 16), (1, 128, 8, 4), (1, 257, 8192, 16),
+                                     (2, 1, 100, 16), (1, 77, 130, 3)])
+def test_selective_scan_kernel_matches_plain(cuda, B, S, C, N, dtype):
+    from repro_torch.kernels import ref, runtime, sscan
+
+    gen = torch.Generator("cuda").manual_seed(S * 11 + C)
+    args = _scan_inputs(gen, cuda, B, S, C, N, dtype)
+    before = runtime.LAUNCHES["selective_scan"]
+    y, state = sscan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["selective_scan"] == before + 1
+    y_ref, s_ref = ref.selective_scan(*args)
+    # the selective scan's own tolerance (atol 2e-4, tests/test_kernels.py)
+    tol = dict(atol=2e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
+
+
+def test_flash_attention_rejects_head_widths_it_is_not_built_for(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 2, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention(q, q, q)
+
+
 def test_empty_inputs_launch_nothing(cuda):
     from repro_torch.kernels import ops, runtime, sscan
 

@@ -76,7 +76,9 @@ class TestRules:
         res = json.loads(out.stdout.strip().splitlines()[-1])
         assert res["bad"] == []
         for m in ("repro_torch.core.mapper", "repro_torch.core.dopt", "repro_torch.kernels.sscan",
-                  "repro_torch.kernels.popsim_kernel", "repro_torch.workloads.dfg_lm"):
+                  "repro_torch.kernels.popsim_kernel", "repro_torch.workloads.dfg_lm",
+                  "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd", "repro_torch.models.model",
+                  "repro_torch.serving.engine"):
             assert m in res["mods"]
 
     def test_entry_points_need_a_device_without_cuda(self):
@@ -102,10 +104,13 @@ class TestRules:
         # dispatcher picks by the tensor's device, and nothing catches a fault
         import inspect
 
-        from repro_torch.kernels import popsim_kernel, sscan
+        from repro_torch.kernels import flash_attention, popsim_kernel, ssd, sscan
 
         for op, cuda_impl in (("repro_torch::affine_scan", sscan._affine_scan_cuda),
-                              ("repro_torch::popsim", popsim_kernel._popsim_cuda)):
+                              ("repro_torch::popsim", popsim_kernel._popsim_cuda),
+                              ("repro_torch::flash_attention", flash_attention._flash_attention_cuda),
+                              ("repro_torch::ssd_chunk_scan", ssd._ssd_chunk_scan_cuda),
+                              ("repro_torch::selective_scan", sscan._selective_scan_cuda)):
             assert torch._C._dispatch_has_kernel_for_dispatch_key(op, "CUDA")
             assert torch._C._dispatch_has_kernel_for_dispatch_key(op, "CPU")
             src = inspect.getsource(cuda_impl)
