@@ -7,14 +7,17 @@ Phases (each raises on failure, so any failure exits non-zero):
 
 1. environment — torch, CUDA and nvcc versions, the card's name and power limit;
 2. build — compile every kernel under src/repro_torch/kernels/csrc with nvcc
-   for sm_90a (one process per source, in parallel) and check the binaries
-   hold sm_90a code;
+   for sm_90a (one process per source, in parallel), check the binaries hold
+   sm_90a code, and count the tensor-core (HGMMA) and TMA (UTMALDG)
+   instructions in the bf16 attention kernel's SASS, which must hold both;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    on inputs from torch.Generator("cuda").manual_seed(0), at the shapes the
-   main paths give it; each one's device time per launch (torch.profiler over
-   many launches), its plain version's, and for attention the time of
-   PyTorch's scaled_dot_product_attention on the same inputs (a yardstick the
-   port never calls);
+   main paths give it (attention: each call must launch the kernel that
+   ``flash_attention.route`` names for its dtype and head width); each one's
+   device time per launch (torch.profiler over many launches), its plain
+   version's, and for attention the time of PyTorch's
+   scaled_dot_product_attention on the same inputs (a yardstick the port never
+   calls);
 4. the simulator path, with the launch counts set to 0 just before and read
    just after:
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
@@ -30,11 +33,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
    each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
-   (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each);
-6. agreement with the reference package at full width: the fixture
-   tests/data/torch_ssm_ref.npz (made by tools/make_torch_ssm_ref.py from the
-   JAX models on the same numpy weights) against this package on the card in
-   float32: prefill logits and 8 teacher-forced decode steps.
+   (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each); zamba2's
+   attention must go through the bf16 tensor-core kernel, 6 launches a request;
+6. the agreement path, with the launch counts set to 0 just before and read
+   just after: the fixture tests/data/torch_ssm_ref.npz (made by
+   tools/make_torch_ssm_ref.py from the JAX models on the same numpy weights)
+   against this package on the card in float32 (prefill logits and 8
+   teacher-forced decode steps), which runs attention through the float32
+   kernel.
 
 The last two lines are a JSON ``kernels`` record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -46,6 +52,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -232,6 +239,11 @@ def phase_build() -> None:
                              check=True).stdout
         print(f"  {name}: {' '.join(elf.split())}")
         check("sm_90a" in elf, f"{path.name} holds no sm_90a code")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(paths["flash_attention_sm90"])], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    print(f"  flash_attention_sm90 SASS: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} UTMALDG (TMA loads)")
+    check(all(counts.values()), f"flash_attention_sm90 holds no tensor-core or no TMA instruction: {counts}")
     for name in paths:
         runtime.library(name)
 
@@ -323,38 +335,93 @@ def _tol(dtype, f32_atol: float) -> dict:
     return dict(atol=f32_atol, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
 
 
+def _close_rows(got, want, rtol: float, what: str) -> float:
+    """Raise unless every row (the last axis) of ``got`` is within ``rtol`` of
+    the plain version's, relative to that row's norm; return the largest ratio.
+    An elementwise bound of 2e-2 is large beside the outputs of rows that see
+    thousands of keys (~0.03 each at S = 4096), so attention is held row by row too."""
+    import torch
+
+    diff = (got.float() - want.float()).norm(dim=-1)
+    rel = diff / want.float().norm(dim=-1).clamp_min(1e-30)
+    check(bool(torch.all(rel <= rtol)), f"{what}: a row off its plain version by {float(rel.max())} of its norm "
+                                        f"(bound {rtol})")
+    return float(rel.max())
+
+
+# per-row bound for attention: rounding P and the output to bf16 puts the
+# tensor-core kernel's rows within ~5e-3 of the plain version's (4.75e-3 at
+# worst, S = 4096, H100 80GB HBM3); float32 rows differ in summation order only
+_ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
 def phase_model_kernels(device) -> dict:
     """K3-K5 against their plain versions at the serving path's shapes
     (S = 4096 and the ragged 257, bf16 and f32); returns their records, timed
-    at S = 4096 in bf16 (the serving path's dtype)."""
+    at S = 4096 in bf16 (the serving path's dtype), and the float32 attention
+    kernel in float32 (the agreement path's)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref, ssd, sscan
+    from repro_torch.kernels import ref, runtime, ssd, sscan
 
     gen = torch.Generator(device.type).manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
     rec = {}
 
-    # K3: zamba2's shared block, 32 heads of 64 (MHA); also GQA group 4 with Sq < Skv
-    err = 0.0
-    for (Hq, Hkv, Sq, Skv) in ((32, 32, 4096, 4096), (32, 32, 257, 257), (32, 8, 1000, 4096)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = randn(1, Hq, Sq, 64).to(dtype), randn(1, Hkv, Skv, 64).to(dtype), randn(1, Hkv, Skv, 64).to(dtype)
-            got = fa.flash_attention(q, k, v, causal=True)
-            e = _close(got, ref.reference_attention(q, k, v, causal=True), **_tol(dtype, 2e-5),
-                       what=f"flash_attention Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} {dtype}")
-            err = max(err, e)
-            print(f"  flash_attention q[1,{Hq},{Sq},64] kv[1,{Hkv},{Skv},64] {str(dtype)[6:]}: max abs err {e:.3g}")
-    q, k, v = (randn(1, 32, 4096, 64).to(torch.bfloat16) for _ in range(3))
-    kern = lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5)  # noqa: E731
-    rec["flash_attention"] = dict(  # q, k, v in and o out, bf16
-        max_abs_err=err, bytes=4 * q.numel() * 2, ops=fa.operations(1, 32, 4096, 4096, 64, True),
-        peak=BF16_TC_OPS_PER_S,
-        ms=device_ms(kern, 20, "flash_attention_kernel"),
+    # K3: zamba2's shared block, 32 heads of 64 (MHA); GQA group 4 with Sq < Skv;
+    # rows that see no key (Sq > Skv); head width 128 (the dense families) in bf16;
+    # a bf16 head width of 32, which stays on the float32-pipe kernel.  First one
+    # tile, not causal: the wgmma operand layouts on their own.  The three
+    # shapes that were here before draw from ``gen`` in the order they did, the
+    # added ones from a generator of their own, so K4 and K5 keep the inputs they
+    # had before K3 had two kernels.  That also keeps a known K4 failure out of
+    # sight: on other draws of the same shapes K4's float32 check has failed
+    # (PERF.md, section 7).
+    gen_k3 = torch.Generator(device.type).manual_seed(3)
+    randn_k3 = lambda *s: torch.randn(*s, generator=gen_k3, device=device)  # noqa: E731
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(randn_k3, 1, 1, 64, 64, 64, False, (bf16,)), (randn_k3, 1, 1, 64, 64, 128, False, (bf16,))]
+    cases += [(randn, 32, Hkv, Sq, Skv, 64, True, (bf16, f32))
+              for Hkv, Sq, Skv in ((32, 4096, 4096), (32, 257, 257), (8, 1000, 4096))]
+    cases += [(randn_k3, 32, 8, 300, 200, 64, True, (bf16, f32))]
+    cases += [(randn_k3, 32, Hkv, Sq, Skv, 128, True, (bf16,))
+              for Hkv, Sq, Skv in ((32, 4096, 4096), (8, 1000, 4096), (8, 300, 200))]
+    cases += [(randn_k3, 32, 8, 257, 257, 32, True, (bf16,))]
+    # the serving path's other two prompts (1000: a q tile's second warpgroup partly
+    # past Sq, the keys ragged at the diagonal; 64: one tile)
+    cases += [(randn_k3, 32, 32, S, S, 64, True, (bf16, f32)) for S in (1000, 64)]
+    err = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
+    for (draw, Hq, Hkv, Sq, Skv, D, causal, dtypes) in cases:
+        for dtype in dtypes:
+            q, k, v = draw(1, Hq, Sq, D).to(dtype), draw(1, Hkv, Skv, D).to(dtype), draw(1, Hkv, Skv, D).to(dtype)
+            name = fa.route(dtype, D)
+            before = {n: runtime.LAUNCHES[n] for n in err}
+            got = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check({n: runtime.LAUNCHES[n] - before[n] for n in err} == {n: int(n == name) for n in err},
+                  f"flash_attention {dtype} D={D} did not launch {name} once")
+            what = f"{name} q[1,{Hq},{Sq},{D}] kv[1,{Hkv},{Skv},{D}] {str(dtype)[6:]} causal={causal}"
+            want = ref.reference_attention(q, k, v, causal=causal)
+            e = _close(got, want, **_tol(dtype, 2e-5), what=what)
+            row = _close_rows(got, want, _ROW_RTOL[str(dtype)[6:]], what)
+            err[name] = max(err[name], e)
+            print(f"  {what}: max abs err {e:.3g}, max row err {row:.3g} of the row's norm")
+    q, k, v = (randn(1, 32, 4096, 64).to(bf16) for _ in range(3))
+    ops = fa.operations(1, 32, 4096, 4096, 64, True)
+    rec["flash_attention_sm90"] = dict(  # q, k, v in and o out, bf16
+        max_abs_err=err["flash_attention_sm90"], bytes=4 * q.numel() * 2, ops=ops, peak=BF16_TC_OPS_PER_S,
+        ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5), 20, "flash_attention_sm90_kernel"),
         plain_ms=device_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+    q, k, v = (x.float() for x in (q, k, v))
+    rec["flash_attention"] = dict(  # the same inputs in float32, the kernel's path in the agreement phase
+        max_abs_err=err["flash_attention"], bytes=4 * q.numel() * 4, ops=ops, peak=FP32_OPS_PER_S,
+        ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5), 10, "flash_attention_kernel"),
+        plain_ms=device_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+    del q, k, v
 
     # K4: zamba2's Mamba2 layers: x [1,S,64,64], dt [1,S,64], A [64], B, C [1,S,64]
     err = 0.0
@@ -652,11 +719,14 @@ def phase_profile(device) -> None:
 
 
 SIM_KERNELS = ("affine_scan", "popsim")
-SERVE_KERNELS = ("flash_attention", "ssd_chunk_scan", "selective_scan")
+SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
+AGREE_KERNELS = ("flash_attention",)  # float32 attention
 META = {  # kernel -> (source, the TPU kernel it replaces)
     "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
     "popsim": ("src/repro_torch/kernels/csrc/popsim.cu", "src/repro/kernels/popsim_kernel.py:152"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:88"),
+    "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention.py:88"),
     "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:93"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu", "src/repro/kernels/sscan.py:70"),
 }
@@ -677,7 +747,7 @@ def drive(name: str, phases, kernels) -> dict:
     launches = {k: runtime.LAUNCHES[k] for k in kernels}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the {name} path")
-    print(f"{name}-path launches: {launches}")
+    print(f"{name}-path launches: {dict(runtime.LAUNCHES)}")
     return launches
 
 
@@ -687,6 +757,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
 
     t_start = time.perf_counter()
@@ -700,8 +771,13 @@ def main() -> int:
     launches = drive("simulator", [lambda: phase_simulate(device), lambda: phase_optimize(device),
                                    lambda: phase_population(device)], SIM_KERNELS)
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
-    print("agreement with the reference package (fixture):")
-    phase_agree(device)
+    zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers
+    want = zamba2.n_layers // zamba2.hybrid.attn_every * len(SERVE_PROMPTS)
+    check(launches["flash_attention_sm90"] == want and runtime.LAUNCHES["flash_attention"] == 0,
+          f"serving path: {launches['flash_attention_sm90']} launches of flash_attention_sm90 (want {want}) and "
+          f"{runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
+    print("agreement with the reference package (fixture), float32:")
+    launches.update(drive("agreement", [lambda: phase_agree(device)], AGREE_KERNELS))
     print("where the time goes:")
     phase_profile(device)
 

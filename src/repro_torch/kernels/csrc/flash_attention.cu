@@ -1,6 +1,9 @@
 // Causal (or full) attention with grouped KV heads and an online softmax:
 //   o[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / group, j]) v[b, h / group, j]
 // over contiguous [B, H, S, D] arrays, float32 or bfloat16, output in q's type.
+// It takes float32 at D = 16, 32 or 64 (a tensor-core product would be TF32, off
+// the reference's 2e-5) and bf16 at D = 16 or 32; bf16 at 64 or 128 runs on the
+// tensor cores in flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (_attn_kernel) and keeps its numerics: scores, the running max m, the running
@@ -29,6 +32,8 @@
 // them.  Keys past Skv are left out of the softmax altogether.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -135,9 +140,13 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B, in
     case 32:
       flash_attention_kernel<T, 32><<<grid, kBlockQ, 0, stream>>>(qq, kk, vv, oo, Hq, Hkv, Sq, Skv, causal, scale);
       break;
-    case 64:
-      flash_attention_kernel<T, 64><<<grid, kBlockQ, 0, stream>>>(qq, kk, vv, oo, Hq, Hkv, Sq, Skv, causal, scale);
-      break;
+    case 64:  // bf16 at 64 runs on the tensor cores (flash_attention_sm90.cu)
+      if constexpr (std::is_same_v<T, float>) {
+        flash_attention_kernel<T, 64><<<grid, kBlockQ, 0, stream>>>(qq, kk, vv, oo, Hq, Hkv, Sq, Skv, causal, scale);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -147,7 +156,8 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B, in
 }  // namespace
 
 // q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], o [B, Hq, Sq, D]; all contiguous and
-// of one type (bf16 != 0: bfloat16, else float32).  D is 16, 32 or 64.
+// of one type (bf16 != 0: bfloat16, else float32).  D is 16, 32 or 64, and 64 only
+// in float32.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Skv, int D, int causal, float scale, int bf16,
                                       void* stream) {

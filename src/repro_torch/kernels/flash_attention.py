@@ -1,10 +1,15 @@
-"""Attention with grouped KV heads and an online softmax, as a hand-written
-CUDA kernel (``csrc/flash_attention.cu``).  Forward only.
+"""Attention with grouped KV heads and an online softmax, as hand-written
+CUDA kernels.  Forward only.
 
-The op ``torch.ops.repro_torch.flash_attention`` launches the kernel on CUDA
+The op ``torch.ops.repro_torch.flash_attention`` launches a kernel on CUDA
 tensors and runs the plain version, ``ref.reference_attention``, on CPU
-tensors.  The kernel masks ragged Sq and Skv itself, so no block size has to
-divide the sequence.
+tensors.  Which kernel is a function of the dtype and the head width alone
+(:func:`route`): bf16 at D = 64 or 128 goes to the tensor cores
+(``csrc/flash_attention_sm90.cu``: wgmma, K/V tiles by TMA); float32, and bf16
+at D = 16 or 32, to ``csrc/flash_attention.cu`` on the float32 pipes, whose
+float32 numbers match the reference's 2e-5 (a tensor-core product in float32
+would be TF32).  Each kernel has its own launch count.  Both kernels mask
+ragged Sq and Skv themselves, so no block size has to divide the sequence.
 """
 from __future__ import annotations
 
@@ -13,8 +18,22 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import reference_attention
 
-HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is compiled for
-_DTYPES = (torch.float32, torch.bfloat16)
+# the head widths each kernel is compiled for
+SM90_HEAD_DIMS = (64, 128)  # flash_attention_sm90: bf16 on the tensor cores
+F32_PIPE_HEAD_DIMS = (16, 32, 64)  # flash_attention: float32 pipes; float32, and bf16 below 64
+HEAD_DIMS = {torch.float32: F32_PIPE_HEAD_DIMS, torch.bfloat16: (16, 32, 64, 128)}
+_DTYPES = tuple(HEAD_DIMS)
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel (its ``runtime.LAUNCHES`` key) that attention over ``dtype``
+    q, k, v of head width ``D`` launches on the card; raises for a pair no
+    kernel is built for."""
+    if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
+        return "flash_attention_sm90"
+    if dtype in HEAD_DIMS and D in F32_PIPE_HEAD_DIMS:
+        return "flash_attention"
+    raise ValueError(f"flash_attention: head width {D} in {dtype} is not one of {HEAD_DIMS.get(dtype, ())}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -46,17 +65,23 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     B, Hq, Sq, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {D} is not one of {HEAD_DIMS}")
+    name = route(q.dtype, D)
     out = torch.empty_like(q)
     if out.numel() == 0:  # nothing to attend, no launch
         return out
-    lib = runtime.library("flash_attention")
-    runtime.count_launch("flash_attention")
-    err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-                                     k.shape[1], Sq, k.shape[2], D, int(causal), float(scale),
-                                     int(q.dtype == torch.bfloat16), runtime.stream_handle(q))
-    runtime.check_launch("flash_attention", err)
+    if name == "flash_attention_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v at head width 64 or 128 must start on a "
+                         "16-byte boundary (TMA reads them)")
+    args = (B, Hq, k.shape[1], Sq, k.shape[2], D, int(causal), float(scale))
+    lib = runtime.library(name)
+    runtime.count_launch(name)
+    if name == "flash_attention_sm90":
+        err = lib.flash_attention_sm90_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+                                              runtime.stream_handle(q))
+    else:
+        err = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+                                         int(q.dtype == torch.bfloat16), runtime.stream_handle(q))
+    runtime.check_launch(name, err)
     return out
 
 

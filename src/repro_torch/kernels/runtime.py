@@ -38,6 +38,7 @@ SOURCES = {
     "affine_scan": "affine_scan.cu",
     "popsim": "popsim.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
     "ssd_chunk_scan": "ssd.cu",
     "selective_scan": "selective_scan.cu",
 }
@@ -180,6 +181,8 @@ _ENTRY = {
     "popsim": ("popsim_launch", [_P, _P, _P, _I, _I, _P]),
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, bf16, stream
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, stream (bf16 only)
+    "flash_attention_sm90": ("flash_attention_sm90_launch", [_P] * 4 + [_I] * 7 + [_F, _P]),
     # x, dt, A, B, C, y, state, Bt, S, H, P, N, bf16, stream
     "ssd_chunk_scan": ("ssd_chunk_scan_launch", [_P] * 7 + [_I] * 6 + [_P]),
     # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream

@@ -3,7 +3,9 @@
 These need an NVIDIA GPU and nvcc; elsewhere they skip (the CPU suite holds
 the plain versions against the reference package instead).  On the card:
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+    PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which that machine lacks.)
 """
 import pytest
 import torch
@@ -64,9 +66,18 @@ def test_popsim_kernel_matches_plain(cuda, P):
 # outputs of larger magnitude.  bfloat16 outputs are rounded from float32 in
 # both, so they may differ by a bf16 step: 2e-2, the reference's bf16 bound.
 _TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# attention is also held row by row, relative to each row's norm: the
+# elementwise bf16 bound is large beside a row that averages many keys
+_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _assert_rows_close(got, want, dtype):
+    rel = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+    assert float(rel.max()) <= _ROW_RTOL[dtype], f"a row off by {float(rel.max())} of its norm"
 
 ATTN_SHAPES = [
     # B, Hq, Hkv, Sq, Skv, D
+    (1, 1, 1, 64, 64, 64),       # one tile: a single K/V tile and a single wgmma row block
     (1, 4, 4, 128, 128, 64),     # MHA
     (2, 8, 2, 256, 256, 64),     # GQA 4:1
     (1, 8, 1, 128, 128, 32),     # MQA
@@ -74,25 +85,81 @@ ATTN_SHAPES = [
     (1, 32, 32, 257, 257, 64),   # zamba2's shared block at a ragged prompt
     (1, 8, 2, 100, 333, 64),     # ragged, GQA
     (2, 4, 2, 70, 50, 16),       # Sq > Skv: early rows see no key
+    (1, 4, 2, 300, 200, 64),     # Sq > Skv at D = 64: whole q tiles of rows that see no key
+    (2, 8, 2, 1, 300, 64),       # Sq = 1
+]
+# head width 128: bf16 only (the float32 kernel stops at 64)
+ATTN_SHAPES_128 = [
+    (1, 4, 4, 256, 256, 128),    # MHA
+    (2, 8, 2, 200, 200, 128),    # GQA 4:1, ragged
+    (1, 8, 2, 100, 333, 128),    # ragged, Sq < Skv
+    (1, 4, 1, 300, 200, 128),    # Sq > Skv: early rows see no key
+    (2, 8, 2, 1, 129, 128),      # Sq = 1
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES)
-def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+def _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    """One call of the wrapper: the launch count of the kernel ``route`` names
+    rises by one and no other attention count moves; the output is the plain
+    version's within ``_TOL``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, runtime
 
     gen = torch.Generator("cuda").manual_seed(Sq * 131 + Skv)
     q, k, v = (torch.randn(B, h, s, D, generator=gen, device=cuda).to(dtype)
                for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
-    before = runtime.LAUNCHES["flash_attention"]
+    names = ("flash_attention", "flash_attention_sm90")
+    want_kernel = "flash_attention_sm90" if dtype == torch.bfloat16 and D in (64, 128) else "flash_attention"
+    assert fa.route(dtype, D) == want_kernel
+    before = {n: runtime.LAUNCHES[n] for n in names}
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert runtime.LAUNCHES["flash_attention"] == before + 1
+    assert {n: runtime.LAUNCHES[n] - before[n] for n in names} == {n: int(n == want_kernel) for n in names}
     assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), ref.reference_attention(q, k, v, causal=causal).float(), **_TOL[dtype])
+    want = ref.reference_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **_TOL[dtype])
+    _assert_rows_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES_128)
+def test_flash_attention_sm90_head_width_128_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)],
+                         ids=["f32-64", "bf16-64", "bf16-128"])
+def test_flash_attention_takes_a_negative_scale(cuda, dtype, D, causal):
+    """The tensor-core kernel takes the max of the raw scores where it folds the
+    scale into the exponent, which holds only for a scale >= 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator("cuda").manual_seed(D)
+    q, k, v = (torch.randn(1, 4, 200, D, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=causal, scale=-0.5 * D ** -0.5)
+    want = ref.reference_attention(q, k, v, causal=causal, scale=-0.5 * D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), **_TOL[dtype])
+    _assert_rows_close(got, want, dtype)
+
+
+def test_flash_attention_sm90_rejects_a_base_tma_cannot_read(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import runtime
+
+    q = torch.zeros(1 + 2 * 64 * 64, device=cuda, dtype=torch.bfloat16)[1:].view(1, 2, 64, 64)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, q, q)
+    assert runtime.LAUNCHES == before
 
 
 def _ssd_inputs(gen, dev, B, S, H, P, N, dtype):
@@ -156,6 +223,18 @@ def test_flash_attention_rejects_head_widths_it_is_not_built_for(cuda):
     q = torch.zeros(1, 2, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("D", [8, 96, 256])
+def test_flash_attention_rejects_bf16_head_widths_no_kernel_is_built_for(cuda, D):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import runtime
+
+    q = torch.zeros(1, 2, 8, D, device=cuda, dtype=torch.bfloat16)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention(q, q, q)
+    assert runtime.LAUNCHES == before
 
 
 def test_empty_inputs_launch_nothing(cuda):

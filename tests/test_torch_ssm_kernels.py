@@ -80,6 +80,34 @@ class TestAttention:
         with pytest.raises(ValueError):
             fa.flash_attention(q, torch.randn(1, 3, 8, 16), torch.randn(1, 3, 8, 16))  # 4 heads onto 3
 
+    # which kernel the op launches on the card is a function of dtype and head
+    # width alone: bf16 at 64 or 128 on the tensor cores, the rest on the
+    # float32 pipes (float32 there keeps the reference's 2e-5: no TF32)
+    @pytest.mark.parametrize("dtype,D,kernel", [
+        (torch.bfloat16, 64, "flash_attention_sm90"), (torch.bfloat16, 128, "flash_attention_sm90"),
+        (torch.bfloat16, 16, "flash_attention"), (torch.bfloat16, 32, "flash_attention"),
+        (torch.float32, 16, "flash_attention"), (torch.float32, 32, "flash_attention"),
+        (torch.float32, 64, "flash_attention")])
+    def test_route_is_a_function_of_dtype_and_head_width(self, dtype, D, kernel):
+        from repro_torch.kernels import runtime
+
+        assert fa.route(dtype, D) == kernel
+        assert kernel in runtime.SOURCES and kernel in runtime.LAUNCHES
+
+    @pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.bfloat16, 96), (torch.bfloat16, 256),
+                                         (torch.bfloat16, 8), (torch.float16, 64)])
+    def test_route_raises_where_no_kernel_is_built(self, dtype, D):
+        with pytest.raises(ValueError, match="head width"):
+            fa.route(dtype, D)
+
+    def test_head_width_128_in_bf16_matches_reference(self):
+        # the plain version behind the op at the sm90 kernel's wider head
+        rng = np.random.default_rng(128)
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.standard_normal(s, np.float32), "bfloat16")
+                                        for s in ((1, 4, 40, 128), (1, 2, 40, 128), (1, 2, 40, 128)))
+        got = fa.flash_attention(tq, tk, tv, causal=True)
+        np.testing.assert_allclose(_np(got), _np(jax_ref.reference_attention(jq, jk, jv, causal=True)), atol=2e-2)
+
 
 def _ssd_inputs(rng, B, S, H, P, N):
     x = rng.standard_normal((B, S, H, P), np.float32)
