@@ -204,14 +204,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     return y.to(x.dtype), state
 
 
-def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                  C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, C: torch.Tensor, *,
+                  dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-step recurrence that SSD reformulates (the test oracle):
-    state_t = exp(dt_t A_h) state_{t-1} + dt_t (B_t outer x_t);  y_t = C_t . state_t."""
+    state_t = exp(dt_t A_h) state_{t-1} + dt_t (B_t outer x_t);  y_t = C_t . state_t.
+    ``dtype`` is the type it accumulates in.  At float32 (the default) y
+    comes back in x's type and the state in float32; at a wider type
+    (float64: the oracle the float32 versions are held against) both stay in
+    that type."""
     B_, S, H, P = x.shape
     N = Bm.shape[-1]
-    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), Bm.float(), C.float(), A.float()
-    state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=x.device)
+    xf, dtf, Bf, Cf, Af = (t.to(dtype) for t in (x, dt, Bm, C, A))
+    state = torch.zeros(B_, H, N, P, dtype=dtype, device=x.device)
     ys = []
     for t in range(S):
         decay = torch.exp(dtf[:, t] * Af[None])  # [B, H]
@@ -219,7 +223,25 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
         state = decay[..., None, None] * state + upd
         ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], state))
     y = torch.stack(ys, 1) if ys else xf
-    return y.to(x.dtype), state
+    return (y.to(x.dtype) if dtype == torch.float32 else y), state
+
+
+def selective_scan_reference(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                             Cm: torch.Tensor, D: torch.Tensor, *,
+                             dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-step Mamba1 recurrence (the test oracle):
+    s_t = exp(dt_t A) s_{t-1} + dt_t u_t B_t;  y_t = C_t . s_t + D u_t.
+    ``dtype`` is the type it accumulates in, as in :func:`ssd_reference`."""
+    B_, S, C = u.shape
+    uf, dtf, Af, Bf, Cf, Df = (t.to(dtype) for t in (u, dt, A, Bm, Cm, D))
+    state = torch.zeros(B_, C, A.shape[1], dtype=dtype, device=u.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t, :, None] * Af)  # [B, C, N]
+        state = decay * state + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bcn,bn->bc", state, Cf[:, t]))
+    y = (torch.stack(ys, 1) if ys else uf) + uf * Df
+    return (y.to(u.dtype) if dtype == torch.float32 else y), state
 
 
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

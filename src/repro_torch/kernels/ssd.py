@@ -79,6 +79,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
 
 def operations(Bt: int, S: int, H: int, P: int, N: int) -> int:
     """Operations of the recurrence (not of the chunked form's redundant
-    products): per step and head, exp(dt A) (2), dt*x (P), the state update
-    decay*s + (dt x) B (3 N P) and y = C . s (2 N P)."""
-    return Bt * S * H * (2 + P + 5 * N * P)
+    products): per step and head, dt A (1), dt*x (P), the state update
+    decay*s + (dt x) B (3 N P) and y = C . s (2 N P).  The exponential of each
+    step and head is counted apart, against the special-function unit."""
+    return Bt * S * H * (1 + P + 5 * N * P)

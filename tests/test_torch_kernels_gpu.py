@@ -217,6 +217,74 @@ def test_selective_scan_kernel_matches_plain(cuda, B, S, C, N, dtype):
     torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
 
 
+def _scan_edge_inputs(gen, dev, case, dtype):
+    """Inputs at the selective-scan kernel's edges: 48-step chunks of 32
+    channels, tiles by TMA when C % 8 == 0 and N == 16 (else element by
+    element)."""
+    B, S, C, N = SCAN_EDGES[case]
+    u, dt, A, Bm, Cm, D = _scan_inputs(gen, dev, B, S, C, N, dtype)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
+    if case == "long memory":  # the carry through all 86 chunks decides y and the state
+        dt, A = 0.01 * rand(B, S, C), -1e-3 * (1 - rand(C, N))
+    elif case == "fast decay":  # dt A <= -80: the decay underflows to 0
+        dt, A = 80 + 20 * rand(B, S, C), -(1 + rand(C, N))
+    return u, dt, A, Bm, Cm, D
+
+
+SCAN_EDGES = {  # B, S, C, N
+    "S 1": (1, 1, 64, 16),
+    "S 49, one step past a chunk": (1, 49, 64, 16),
+    "S 97, ragged at the second chunk": (2, 97, 64, 16),
+    "S 8193, many carries": (1, 8193, 64, 16),
+    "C 130": (1, 100, 130, 16),
+    "C 100, N 3, batch 2": (2, 100, 100, 3),
+    "N 3": (1, 60, 64, 3),
+    "N 16, batch 2": (2, 77, 256, 16),
+    "long memory": (1, 4096, 256, 16),
+    "fast decay": (1, 300, 256, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SCAN_EDGES))
+def test_selective_scan_kernel_edges(cuda, case, dtype):
+    """Against the plain version and the float64 recurrence, each with the
+    selective scan's own tolerance (atol 2e-4, tests/test_kernels.py; a bf16
+    step in bf16)."""
+    from repro_torch.kernels import ref, runtime, sscan
+
+    gen = torch.Generator("cuda").manual_seed(sum(SCAN_EDGES[case]))
+    args = _scan_edge_inputs(gen, cuda, case, dtype)
+    before = runtime.LAUNCHES["selective_scan"]
+    y, state = sscan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["selective_scan"] == before + 1
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(state).all())
+    tol = dict(atol=2e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
+    y_ref, s_ref = ref.selective_scan(*args)
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
+    y64, s64 = ref.selective_scan_reference(*args, dtype=torch.float64)
+    torch.testing.assert_close(y.double(), y64, **tol)
+    torch.testing.assert_close(state.double(), s64, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_kernel_takes_unaligned_bases(cuda, dtype):
+    """A base off 16 bytes (TMA refuses it) goes element by element."""
+    from repro_torch.kernels import ref, sscan
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    u, dt, A, Bm, Cm, D = _scan_inputs(gen, cuda, 1, 70, 64, 16, dtype)
+    u = torch.cat([u.new_zeros(1), u.flatten()])[1:].view(u.shape)
+    assert u.data_ptr() % 16 != 0
+    y, state = sscan.selective_scan(u, dt, A, Bm, Cm, D)
+    y_ref, s_ref = ref.selective_scan(u, dt, A, Bm, Cm, D)
+    tol = dict(atol=2e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
+
+
 def test_flash_attention_rejects_head_widths_it_is_not_built_for(cuda):
     from repro_torch.kernels import flash_attention as fa
 

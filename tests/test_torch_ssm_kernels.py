@@ -149,6 +149,15 @@ class TestSSD:
         torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
         torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=0)
 
+    @pytest.mark.parametrize("B,S,H,P,N", [(1, 64, 2, 16, 8), (1, 67, 3, 16, 8)])
+    def test_float64_oracle_matches_reference(self, B, S, H, P, N):
+        args = _ssd_inputs(np.random.default_rng(S + H), B, S, H, P, N)
+        y_ref, s_ref = jax_ref.ssd_reference(*map(jnp.asarray, args))
+        y, state = ref.ssd_reference(*(torch.from_numpy(a) for a in args), dtype=torch.float64)
+        assert y.dtype == state.dtype == torch.float64
+        np.testing.assert_allclose(y.numpy(), _np(y_ref), atol=1e-4)
+        np.testing.assert_allclose(state.numpy(), _np(s_ref), atol=1e-4)
+
     def test_bf16_x_keeps_float32_state(self):
         x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(5), 1, 70, 2, 16, 8)
         xb = torch.from_numpy(x).to(torch.bfloat16)
@@ -176,13 +185,17 @@ def _scan_inputs(rng, B, S, C, N):
     return u, dt, A, Bm, Cm, D
 
 
+SCAN_SHAPES = [
+    # B, S, C, N, the reference kernel's chunk and channel block
+    (1, 32, 16, 8, 8, 16),
+    (2, 64, 32, 16, 16, 16),
+    (1, 128, 8, 4, 32, 8),
+    (1, 67, 24, 8, 67, 8),   # ragged for the port's 64-step chunks
+]
+
+
 class TestSelectiveScan:
-    @pytest.mark.parametrize("B,S,C,N,chunk,bc", [
-        (1, 32, 16, 8, 8, 16),
-        (2, 64, 32, 16, 16, 16),
-        (1, 128, 8, 4, 32, 8),
-        (1, 67, 24, 8, 67, 8),   # ragged for the port's 64-step chunks
-    ])
+    @pytest.mark.parametrize("B,S,C,N,chunk,bc", SCAN_SHAPES)
     def test_matches_reference(self, B, S, C, N, chunk, bc):
         args = _scan_inputs(np.random.default_rng(S + C), B, S, C, N)
         jargs = [jnp.asarray(a) for a in args]
@@ -209,3 +222,14 @@ class TestSelectiveScan:
             sscan.selective_scan(u, dt, A, Bm, Cm, D.double())
         with pytest.raises(ValueError):
             sscan.selective_scan(u, dt, A[:2], Bm, Cm, D)
+
+    @pytest.mark.parametrize("B,S,C,N,chunk,bc", SCAN_SHAPES)
+    def test_per_step_oracle_matches_reference(self, B, S, C, N, chunk, bc):
+        args = _scan_inputs(np.random.default_rng(S + C), B, S, C, N)
+        y_ref, s_ref = jax_mamba.selective_scan(*map(jnp.asarray, args), chunk=chunk)
+        targs = [torch.from_numpy(a) for a in args]
+        for dtype in (torch.float32, torch.float64):
+            y, state = ref.selective_scan_reference(*targs, dtype=dtype)
+            assert y.dtype == state.dtype == dtype
+            np.testing.assert_allclose(y.double().numpy(), _np(y_ref), atol=2e-4)
+            np.testing.assert_allclose(state.double().numpy(), _np(s_ref), atol=2e-4)
