@@ -171,37 +171,51 @@ def _pad_steps(chunk: int, *xs: torch.Tensor) -> tuple[int, list[torch.Tensor]]:
     return (S + pad) // chunk, out
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD (Mamba2): intra-chunk products and an inter-chunk state carry.
-    x [B, S, H, P], dt [B, S, H], A [H], B and C [B, S, N].  Returns
-    (y [B, S, H, P] in x's type, final state [B, H, N, P] float32).  Any S: the
-    last chunk is padded with zero steps."""
+def ssd_scan_phases(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba2) in the three phases of its kernels, every chunk at
+    once but for the pass: (1) each chunk's own state contribution
+    dS_c = B^T diag(exp(cum_L - cum) dt) x; (2) the pass
+    S_c = exp(cum_L) S_{c-1} + dS_c; (3) each chunk's output
+    y = (C B^T o decay o dt) x + exp(cum) (C S_{c-1}).  x [B, S, H, P],
+    dt [B, S, H], A [H], B and C [B, S, N].  Returns (y [B, S, H, P] in x's
+    type, final state [B, H, N, P] float32, the state entering each chunk
+    [B, chunks, H, N, P] float32).  Any S: the last chunk is padded with zero
+    steps."""
     B_, S, H, P = x.shape
     N = Bm.shape[-1]
+    L = chunk
     nc, (xf, dtf, Bf, Cf) = _pad_steps(chunk, x, dt, Bm, Cm)
-    Af = A.float()
-    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    xc, dtc = xf.reshape(B_, nc, L, H, P), dtf.reshape(B_, nc, L, H)
+    Bc, Cc = Bf.reshape(B_, nc, L, N), Cf.reshape(B_, nc, L, N)
+    # [B, c, L, H] log-decay from the chunk's start, in float64 as the kernels take
+    # it: the decays are exponentials of its differences
+    cum = torch.cumsum(dtc.double() * A.double(), 2)
+    total = cum[:, :, -1]  # [B, c, H]
+    # 1. chunk states
+    ds = torch.einsum("bclh,bcln,bclhp->bchnp", torch.exp((total[:, :, None] - cum).float()) * dtc, Bc, xc)
+    # 2. the pass
+    entering = torch.empty_like(ds)
     state = torch.zeros(B_, H, N, P, dtype=torch.float32, device=x.device)
-    ys = []
+    decay = total.float().exp()
     for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
-        cum = torch.cumsum(dtc * Af, 1)  # [B, L, H] log-decay from the chunk's start
-        total = cum[:, -1]
-        y_in = torch.einsum("bth,btn,bhnp->bthp", cum.exp(), Cc, state)
-        li = cum[:, :, None, :] - cum[:, None, :, :]  # [B, t, s, H]
-        # the decay only where t >= s: above the diagonal exp would overflow to inf
-        decay = li.masked_fill(~mask[None, :, :, None], float("-inf")).exp()
-        cb = torch.einsum("btn,bsn->bts", Cc, Bc)
-        w = decay * cb[..., None] * dtc[:, None, :, :]
-        y_intra = torch.einsum("btsh,bshp->bthp", w, xc)
-        g = torch.exp(total[:, None] - cum)
-        ds = torch.einsum("bsh,bsn,bshp->bhnp", g * dtc, Bc, xc)
-        state = total.exp()[..., None, None] * state + ds
-        ys.append(y_in + y_intra)
-    y = torch.cat(ys, 1)[:, :S] if ys else xf[:, :S]
-    return y.to(x.dtype), state
+        entering[:, c] = state
+        state = decay[:, c, :, None, None] * state + ds[:, c]
+    # 3. chunk outputs; the decay only where i >= j: above the diagonal exp would overflow to inf
+    mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, c, i, j, H]
+    scores = (li.float().masked_fill(~mask[:, :, None], float("-inf")).exp()
+              * torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * dtc[:, :, None])
+    y = (torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
+         + cum.float().exp()[..., None] * torch.einsum("bcin,bchnp->bcihp", Cc, entering))
+    return y.reshape(B_, nc * L, H, P)[:, :S].to(x.dtype), state, entering
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba2), :func:`ssd_scan_phases` without the entering
+    states: (y [B, S, H, P] in x's type, final state [B, H, N, P] float32)."""
+    return ssd_scan_phases(x, dt, A, Bm, Cm, chunk)[:2]
 
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, C: torch.Tensor, *,

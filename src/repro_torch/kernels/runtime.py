@@ -183,8 +183,8 @@ _ENTRY = {
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, stream (bf16 only)
     "flash_attention_sm90": ("flash_attention_sm90_launch", [_P] * 4 + [_I] * 7 + [_F, _P]),
-    # x, dt, A, B, C, y, state, Bt, S, H, P, N, bf16, stream
-    "ssd_chunk_scan": ("ssd_chunk_scan_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    # x, dt, A, B, C, y, state, scratch, Bt, S, H, P, N, bf16, heads a block, stream
+    "ssd_chunk_scan": ("ssd_chunk_scan_launch", [_P] * 8 + [_I] * 7 + [_P]),
     # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream
     "selective_scan": ("selective_scan_launch", [_P] * 8 + [_I] * 5 + [_P]),
 }

@@ -1,10 +1,13 @@
-"""The Mamba2 chunked SSD scan as a hand-written CUDA kernel (``csrc/ssd.cu``).
+"""The Mamba2 chunked SSD scan as hand-written CUDA kernels (``csrc/ssd.cu``).
 
-The op ``torch.ops.repro_torch.ssd_chunk_scan`` launches the kernel on CUDA
+The op ``torch.ops.repro_torch.ssd_chunk_scan`` launches the kernels on CUDA
 tensors and runs the plain version, ``ref.ssd_scan``, on CPU tensors.  Both
-return the output and the final state.  The chunk length is the kernel's own
-(``CHUNK``): the chunked form is exact for any chunk, and a ragged last chunk
-is masked, so any sequence length works.
+return the output and the final state, and both run in three phases: each
+chunk's own state contribution, a pass that carries the state across the
+chunks, and each chunk's output.  One op call launches three device kernels
+(one when S = 0) and counts as one launch.  The chunk length is the kernel's
+own (``CHUNK``): the chunked form is exact for any chunk, and a ragged last
+chunk is masked, so any sequence length works.
 """
 from __future__ import annotations
 
@@ -14,7 +17,42 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import ssd_scan
 
 CHUNK = 64  # csrc/ssd.cu's kChunk
+TILE = 64  # csrc/ssd.cu's kTile: the scratch states pad N and P to a multiple of it
 MAX_WIDTH = 128  # N and P the kernel's shared memory holds
+MOST_HEADS = 4  # heads a block of the outputs kernel takes at most
+# blocks of the outputs kernel the H100 holds at once at N = P = 64: its shared
+# memory (~70 KB) and registers (165 a thread in bf16) allow 3 on each of 132 SMs
+RESIDENT_BLOCKS = 3 * 132
+
+
+def _padded(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+def heads_per_block(Bt: int, S: int, H: int) -> int:
+    """Heads a block of the outputs kernel takes (1, 2 or 4; they share the
+    chunk's B and C tiles and C B^T): the one whose grid should finish first,
+    by waves of blocks (the grid over ``RESIDENT_BLOCKS``) times a block's
+    work (a head's products each, and C B^T, about half a head's)."""
+    def cost(hpb: int) -> float:
+        blocks = Bt * -(-S // CHUNK) * -(-H // hpb)
+        return -(-blocks // RESIDENT_BLOCKS) * (hpb + 0.5)
+
+    return min((MOST_HEADS, 2, 1), key=cost)
+
+
+def scratch_numel(Bt: int, S: int, H: int, P: int, N: int) -> int:
+    """float32 elements of the kernels' scratch: the [N, P] state of each
+    (batch, chunk, head), N and P padded to ``TILE``, then each one's decay."""
+    return Bt * -(-S // CHUNK) * H * (_padded(N) * _padded(P) + 1)
+
+
+def chunk_states(scratch: torch.Tensor, Bt: int, S: int, H: int, P: int, N: int) -> torch.Tensor:
+    """The state entering each chunk, [Bt, chunks, H, N, P], as a view of a
+    launch's scratch (``scratch_for``) after the kernels ran."""
+    NP, PP = _padded(N), _padded(P)
+    nc = -(-S // CHUNK)
+    return scratch[:Bt * nc * H * NP * PP].view(Bt, nc, H, NP, PP)[..., :N, :P]
 
 
 def _check(x, dt, A, Bm, Cm) -> None:
@@ -41,6 +79,11 @@ def ssd_chunk_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: to
     return ssd_scan(x, dt, A, Bm, Cm, chunk=CHUNK)
 
 
+def scratch_for(x: torch.Tensor, Bt: int, S: int, H: int, P: int, N: int) -> torch.Tensor:
+    """The kernels' scratch on ``x``'s device (uninitialised)."""
+    return torch.empty(scratch_numel(Bt, S, H, P, N), dtype=torch.float32, device=x.device)
+
+
 @ssd_chunk_scan_op.register_kernel("cuda")
 def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                          Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,11 +98,13 @@ def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
     if Bt * H == 0:  # no (batch, head) to scan, no launch
         return y, state
+    scratch = scratch_for(x, Bt, S, H, P, N)
     lib = runtime.library("ssd_chunk_scan")
     runtime.count_launch("ssd_chunk_scan")
     err = lib.ssd_chunk_scan_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                                    y.data_ptr(), state.data_ptr(), Bt, S, H, P, N,
-                                    int(x.dtype == torch.bfloat16), runtime.stream_handle(x))
+                                    y.data_ptr(), state.data_ptr(), scratch.data_ptr(), Bt, S, H, P, N,
+                                    int(x.dtype == torch.bfloat16), heads_per_block(Bt, S, H),
+                                    runtime.stream_handle(x))
     runtime.check_launch("ssd_chunk_scan", err)
     return y, state
 

@@ -170,11 +170,27 @@ def _ssd_inputs(gen, dev, B, S, H, P, N, dtype):
     return x, dt, A, Bm, Cm
 
 
+def _check_ssd(y, state, args, dtype):
+    """y and the final state against the per-step recurrence in float64: SSD's
+    own tolerance (atol 1e-4, tests/test_kernels.py) with a relative term for
+    large states; bf16 y within a bf16 step."""
+    from repro_torch.kernels import ref
+
+    y64, s64 = ref.ssd_reference(*args, dtype=torch.float64)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(state).all())
+    torch.testing.assert_close(y.double(), y64, **tol)
+    torch.testing.assert_close(state.double(), s64, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,P,N", [(1, 64, 2, 16, 8), (2, 128, 4, 32, 16), (1, 32, 1, 64, 4),
-                                       (1, 257, 4, 64, 64), (2, 1, 3, 16, 8), (1, 100, 2, 128, 128)])
+                                       (1, 257, 4, 64, 64), (2, 1, 3, 16, 8), (1, 100, 2, 128, 128),
+                                       (1, 1100, 64, 64, 64), (1, 300, 3, 100, 70), (2, 0, 2, 16, 8)])
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
-    from repro_torch.kernels import ref, runtime, ssd
+    # S = 1, ragged S, many chunks at zamba2's width (4 heads a block), batch 2,
+    # H = 1, N != P, N = P = 128, widths that are no multiple of 4, S = 0
+    from repro_torch.kernels import runtime, ssd
 
     gen = torch.Generator("cuda").manual_seed(S * 7 + H)
     args = _ssd_inputs(gen, cuda, B, S, H, P, N, dtype)
@@ -182,11 +198,63 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, dtype):
     y, state = ssd.ssd_chunk_scan(*args)
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["ssd_chunk_scan"] == before + 1
-    y_ref, s_ref = ref.ssd_reference(*args)  # the per-step recurrence
-    # SSD's own tolerance (atol 1e-4, tests/test_kernels.py), relative for large states
-    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else _TOL[dtype]
-    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
-    torch.testing.assert_close(state, s_ref, atol=1e-4, rtol=1e-4)
+    _check_ssd(y, state, args, dtype)
+
+
+@pytest.mark.parametrize("hpb", [1, 2, 4, 8])
+def test_ssd_heads_per_block(cuda, monkeypatch, hpb):
+    # 6 heads: the last group of 4 or 8 holds fewer heads than the block takes
+    from repro_torch.kernels import ssd
+
+    monkeypatch.setattr(ssd, "heads_per_block", lambda *a: hpb)
+    args = _ssd_inputs(torch.Generator("cuda").manual_seed(hpb), cuda, 1, 200, 6, 64, 64, torch.float32)
+    y, state = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    _check_ssd(y, state, args, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scale", [300.0, 1e-2], ids=["decay-underflow", "long-memory"])
+def test_ssd_decay_extremes(cuda, scale, dtype):
+    # |A| dt in the hundreds: exp(cum) underflows to 0 within a step or two (and
+    # exp(cum_i - cum_j) above the diagonal would overflow); |A| small: the state
+    # carried over many chunks dominates y
+    from repro_torch.kernels import ssd
+
+    x, dt, A, Bm, Cm = _ssd_inputs(torch.Generator("cuda").manual_seed(17), cuda, 1, 600, 4, 64, 64, dtype)
+    args = (x, dt, A * scale, Bm, Cm)
+    y, state = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    _check_ssd(y, state, args, dtype)
+
+
+@pytest.mark.parametrize("S,P,N", [(64, 64, 64), (300, 64, 64), (1000, 32, 128)])
+def test_ssd_entering_states_match_plain_pass(cuda, monkeypatch, S, P, N):
+    # the state entering each chunk, as the kernels' pass leaves it in their
+    # scratch, against the plain version's pass
+    from repro_torch.kernels import ref, ssd
+
+    scratch = []
+    alloc = ssd.scratch_for
+    monkeypatch.setattr(ssd, "scratch_for", lambda *a: scratch.append(alloc(*a)) or scratch[-1])
+    args = _ssd_inputs(torch.Generator("cuda").manual_seed(S + N), cuda, 1, S, 8, P, N, torch.float32)
+    y, state = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    _, _, want = ref.ssd_scan_phases(*args, chunk=ssd.CHUNK)
+    got = ssd.chunk_states(scratch[0], 1, S, 8, P, N)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    _check_ssd(y, state, args, torch.float32)
+
+
+@pytest.mark.parametrize("P,N", [(129, 64), (64, 129), (0, 64)])
+def test_ssd_rejects_unsupported_width_before_launch(cuda, P, N):
+    from repro_torch.kernels import runtime, ssd
+
+    args = _ssd_inputs(torch.Generator("cuda").manual_seed(0), cuda, 1, 70, 2, P, N, torch.float32)
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="must lie in"):
+        ssd.ssd_chunk_scan(*args)
+    assert runtime.LAUNCHES == before
 
 
 def _scan_inputs(gen, dev, B, S, C, N, dtype):

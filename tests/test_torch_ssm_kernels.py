@@ -124,6 +124,7 @@ class TestSSD:
         (2, 128, 4, 32, 16, 32),
         (1, 32, 1, 64, 4, 8),
         (1, 67, 3, 16, 8, 67),   # ragged for the port's 64-step chunks
+        (1, 200, 2, 16, 8, 40),  # four chunks of the port's 64 steps, the last one ragged
     ])
     def test_matches_reference(self, B, S, H, P, N, chunk):
         args = _ssd_inputs(np.random.default_rng(S + H), B, S, H, P, N)
@@ -157,6 +158,41 @@ class TestSSD:
         assert y.dtype == state.dtype == torch.float64
         np.testing.assert_allclose(y.numpy(), _np(y_ref), atol=1e-4)
         np.testing.assert_allclose(state.numpy(), _np(s_ref), atol=1e-4)
+
+    def test_long_memory_carries_the_state_across_chunks(self):
+        # |A| small: exp(dt A) ~ 0.99 a step, so each y is mostly the state carried
+        # over several 64-step chunks; held to the JAX kernel (64-step chunks), the
+        # JAX oracle and the float64 recurrence
+        x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(11), 1, 320, 2, 16, 8)
+        A = (A * 1e-2).astype(np.float32)
+        targs = [torch.from_numpy(a) for a in (x, dt, A, Bm, C)]
+        jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, C)]
+        y, state = ssd.ssd_chunk_scan(*targs)
+        # the last chunk's own steps alone, from a zero state: what is left of y is carried
+        last = [t[:, 256:] for t in targs[:2]] + [targs[2]] + [t[:, 256:] for t in targs[3:]]
+        y_own, _ = ref.ssd_reference(*last, dtype=torch.float64)
+        assert float((y[:, 256:].double() - y_own).norm()) > float(y_own.norm())
+        y64, s64 = ref.ssd_reference(*targs, dtype=torch.float64)
+        for name, (y_ref, s_ref) in {"kernel": jax_ssd(*jargs, chunk=64),
+                                     "per-step oracle": jax_ref.ssd_reference(*jargs),
+                                     "float64": (y64.numpy(), s64.numpy())}.items():
+            np.testing.assert_allclose(_np(y), np.asarray(y_ref, np.float64), atol=1e-4, rtol=1e-4, err_msg=name)
+            np.testing.assert_allclose(_np(state), np.asarray(s_ref, np.float64), atol=1e-4, rtol=1e-4,
+                                       err_msg=name)
+
+    @pytest.mark.parametrize("S", [1, 64, 200])
+    def test_pass_gives_the_state_entering_each_chunk(self, S):
+        # the plain version's phase 2: the state entering chunk c is the
+        # recurrence's state after the first 64 c steps
+        targs = [torch.from_numpy(a) for a in _ssd_inputs(np.random.default_rng(S), 2, S, 3, 16, 8)]
+        y, state, entering = ref.ssd_scan_phases(*targs, chunk=ssd.CHUNK)
+        assert entering.shape == (2, -(-S // ssd.CHUNK), 3, 8, 16)
+        for c in range(entering.shape[1]):
+            _, s_ref = ref.ssd_reference(*(t[:, :c * ssd.CHUNK] for t in targs[:2]), targs[2],
+                                         *(t[:, :c * ssd.CHUNK] for t in targs[3:]), dtype=torch.float64)
+            torch.testing.assert_close(entering[:, c].double(), s_ref, atol=1e-4, rtol=1e-4)
+        _, s_ref = ref.ssd_reference(*targs, dtype=torch.float64)
+        torch.testing.assert_close(state.double(), s_ref, atol=1e-4, rtol=1e-4)
 
     def test_bf16_x_keeps_float32_state(self):
         x, dt, A, Bm, C = _ssd_inputs(np.random.default_rng(5), 1, 70, 2, 16, 8)
