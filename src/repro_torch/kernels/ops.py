@@ -66,6 +66,7 @@ def pack_graph(g: Graph) -> torch.Tensor:
 def popsim(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> torch.Tensor:
     """Evaluate P packed designs against one packed DFG -> [P, OUT_COLS].
 
-    The CUDA kernel runs 128 candidates per block and masks a ragged last
-    block, so any P works and no block size needs choosing."""
+    The CUDA kernel spreads each design over 2 to 32 lanes, chosen from P so
+    that the grid fills the card, and masks a ragged last block, so any P
+    works and no block size needs choosing."""
     return pk.popsim(graph_packed, chw_packed)

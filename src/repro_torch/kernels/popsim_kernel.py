@@ -49,21 +49,35 @@ _SYS = 0
 HEADROOM = 0.9
 
 # The float operations the function needs, each add, multiply, division, ceil,
-# max/min and compare counted once (counted by hand from csrc/popsim.cu).
-# Work that depends on both a candidate and a vertex is needed P*V times; work
-# on a graph row alone (the row's activity sum and compare, max/ceil of N and
-# K, the per-level read+write sums) V times; work on a design alone (the
-# headroom-scaled capacity, each class's effective rate, each level's
-# read+write latency) P times.  Twenty of the P*V operations are divisions,
-# which take several instructions each, so a bound built on this is optimistic.
-OPS_PER_CANDIDATE_VERTEX = 102
+# max/min and compare counted once (counted by hand from the plain version,
+# ref.popsim_reference; a select is not counted, nor an add onto a zero).
+# Work that depends on both a candidate and a vertex is needed P*V times: 94
+# operations, 19 of them divisions, which take several instructions each, so a
+# bound built on this is optimistic.  Of these, the systolic wave model's 14
+# (m_t, the waves, the cycles a tile and the class's time) reach the output
+# only where the row has systolic work, through the plain version's select, so
+# they are needed only on those rows.  The plain version's prefetch gate (a
+# division, an add, a compare, a multiply and a max a candidate and vertex),
+# its occupancy carry (a multiply, an add and a min) and its capacity (a
+# division a candidate) reach no output, since max(can_prefetch, bw_ok) =
+# bw_ok: they are not counted.  Work on a graph row alone (the row's activity
+# sum and compare, max/ceil of N and K, the per-level read+write sums) is
+# needed V times; work on a design alone (the headroom-scaled capacity, the
+# effective rate of classes 1-3, the systolic rate's floor, each level's
+# read+write latency) P times.
+OPS_PER_CANDIDATE_VERTEX = 94
+OPS_WAVE_MODEL = 14
 OPS_PER_VERTEX = 18
-OPS_PER_CANDIDATE = 12
+OPS_PER_CANDIDATE = 11
 
 
-def operations(V: int, P: int) -> int:
-    """Float operations one evaluation of P designs against V vertices needs."""
-    return P * V * OPS_PER_CANDIDATE_VERTEX + V * OPS_PER_VERTEX + P * OPS_PER_CANDIDATE
+def operations(graph_packed: torch.Tensor, P: int) -> int:
+    """Float operations one evaluation of P designs against the packed graph
+    needs, counting the wave model only on the rows with systolic work."""
+    V = graph_packed.shape[0]
+    systolic = int((graph_packed[:, G_COMP.start] > 0).sum())
+    per_design = V * (OPS_PER_CANDIDATE_VERTEX - OPS_WAVE_MODEL) + systolic * OPS_WAVE_MODEL
+    return P * per_design + V * OPS_PER_VERTEX + P * OPS_PER_CANDIDATE
 
 
 def _check(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> None:
@@ -87,7 +101,8 @@ def popsim_op(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> torch.Ten
 
 
 @popsim_op.register_kernel("cuda")
-def _popsim_cuda(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> torch.Tensor:
+def _popsim_cuda(graph_packed: torch.Tensor, chw_packed: torch.Tensor, lanes: int = 0) -> torch.Tensor:
+    # lanes: 0, the launcher's choice; others only through the popsim_lanes test seam
     _check(graph_packed, chw_packed)  # before any pointer reaches the kernel
     g = graph_packed.contiguous()
     c = chw_packed.contiguous()
@@ -97,9 +112,23 @@ def _popsim_cuda(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> torch.
         return out
     lib = runtime.library("popsim")
     runtime.count_launch("popsim")
-    err = lib.popsim_launch(g.data_ptr(), c.data_ptr(), out.data_ptr(), V, P, runtime.stream_handle(c))
+    err = lib.popsim_launch(g.data_ptr(), c.data_ptr(), out.data_ptr(), V, P, lanes, runtime.stream_handle(c))
     runtime.check_launch("popsim", err)
     return out
+
+
+# the kernel's instances: lanes a design, one vertex each a step
+LANES = (2, 4, 8, 16, 32)
+
+
+def popsim_lanes(graph_packed: torch.Tensor, chw_packed: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A test seam, not a user option: the kernel with ``lanes`` lanes a
+    design (one of ``LANES``) in place of the launcher's choice, on CUDA
+    tensors, so that the tests and the timing tool reach every instance."""
+    if graph_packed.device.type != "cuda" or lanes not in LANES:
+        raise ValueError(f"popsim_lanes takes CUDA tensors and lanes in {LANES}, got "
+                         f"{graph_packed.device} and {lanes}")
+    return _popsim_cuda(graph_packed, chw_packed, lanes)
 
 
 @popsim_op.register_fake
@@ -111,6 +140,7 @@ def popsim(graph_packed: torch.Tensor, chw_packed: torch.Tensor) -> torch.Tensor
     """Evaluate P candidate designs against one DFG.  Returns [P, OUT_COLS].
 
     This is the torch op ``torch.ops.repro_torch.popsim``: on CUDA tensors it
-    launches the kernel (128 threads, one per candidate, per block; a ragged
-    last block is masked), on CPU tensors it runs the plain version."""
+    launches the kernel (128-thread blocks; each design's vertices spread over
+    2 to 32 lanes, the most with which the grid fits on the card at once; a
+    ragged last block is masked), on CPU tensors it runs the plain version."""
     return popsim_op(graph_packed, chw_packed)

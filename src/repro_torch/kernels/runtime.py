@@ -178,7 +178,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launch as an int
 _ENTRY = {
     "affine_scan": ("affine_scan_launch", [_P, _P, _I, _I, _F, _I, _P]),
-    "popsim": ("popsim_launch", [_P, _P, _P, _I, _I, _P]),
+    # graph, chw, out, V, P, lanes a design (0: the launcher's choice; others a test seam), stream
+    "popsim": ("popsim_launch", [_P, _P, _P, _I, _I, _I, _P]),
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, bf16, stream
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, stream (bf16 only)

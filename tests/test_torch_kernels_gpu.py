@@ -40,21 +40,122 @@ def test_affine_scan_kernel_matches_plain(cuda, R, V):
     torch.testing.assert_close(b.grad, want_g, rtol=1e-5, atol=1e-6 * float(cot.abs().max()))
 
 
-@pytest.mark.parametrize("P", [1, 100, 1024])
-def test_popsim_kernel_matches_plain(cuda, P):
-    from repro_torch.core import ArchParams, TechParams, specialize
-    from repro_torch.kernels import ops, ref, runtime
-    from repro_torch.workloads import get_workload
+# popsim (K2) is held to its plain version bit for bit: it keeps the plain
+# version's operation order, IEEE '/' and ceilf, and contracts nothing
+def _popsim_exact(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
-    tech = TechParams.default(cuda)
-    tech.cell_read_latency = tech.cell_read_latency * torch.linspace(0.5, 2.0, P, device=cuda)[:, None]
-    cp = ops.pack_chw(specialize(tech, ArchParams.default(cuda)))
-    gp = ops.pack_graph(get_workload("bert_base", device=cuda).pad_to(300))  # spans two graph tiles
+
+def _popsim_graph(name, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import get_workload, lm_cell
+
+    if name == "bert_base-300":  # spans two graph tiles
+        return ops.pack_graph(get_workload("bert_base", device=dev).pad_to(300))
+    return ops.pack_graph(lm_cell("qwen2.5-32b", "prefill_32k", device=dev))  # V = 707
+
+
+def _popsim_designs(dev, P, gbuf_bw_scaled=False):
+    """P designs scaling cell_read_latency 0.5x-2x; with ``gbuf_bw_scaled``,
+    also the global buffer's bandwidth 0.01x-100x, so that on bert_base the
+    bandwidth-EMA gate stays open, shuts, or opens and shuts within one walk."""
+    from repro_torch.core import ArchParams, TechParams, specialize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import popsim_kernel as pk
+
+    tech = TechParams.default(dev)
+    tech.cell_read_latency = tech.cell_read_latency * torch.linspace(0.5, 2.0, P, device=dev)[:, None]
+    cp = ops.pack_chw(specialize(tech, ArchParams.default(dev))).clone()
+    if gbuf_bw_scaled:
+        gbuf = pk.BW.start + pk._GBUF
+        cp[:, gbuf] = cp[:, gbuf] * torch.logspace(-2, 2, P, device=dev)
+    return cp
+
+
+@pytest.mark.parametrize("P", [1, 100, 1024, 65536])
+@pytest.mark.parametrize("graph", ["bert_base-300", "qwen2.5-32b-prefill_32k"])
+def test_popsim_kernel_matches_plain(cuda, graph, P):
+    from repro_torch.kernels import ops, ref, runtime
+
+    cp = _popsim_designs(cuda, P)
+    gp = _popsim_graph(graph, cuda)
     before = runtime.LAUNCHES["popsim"]
     got = ops.popsim(gp, cp)
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["popsim"] == before + 1
-    torch.testing.assert_close(got, ref.popsim_reference(gp, cp), rtol=1e-5, atol=1e-3)
+    _popsim_exact(got, ref.popsim_reference(gp, cp))
+
+
+@pytest.mark.parametrize("lanes", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("V", [1, 37, 300])  # 37: a multiple of no lane count; 300: two tiles
+def test_popsim_lanes_match_plain(cuda, V, lanes):
+    from repro_torch.kernels import popsim_kernel as pk
+    from repro_torch.kernels import ref
+
+    gp = _popsim_graph("bert_base-300", cuda)[:V]
+    cp = _popsim_designs(cuda, 97, gbuf_bw_scaled=True)
+    _popsim_exact(pk.popsim_lanes(gp, cp, lanes), ref.popsim_reference(gp, cp))
+
+
+def _edge(name, gp, cp):
+    from repro_torch.kernels import popsim_kernel as pk
+
+    gp, cp = gp.clone(), cp.clone()
+    nan = float("nan")
+    if name == "nan-in-one-design":  # one column of one design each
+        for p, col in enumerate((pk.FREQ, pk.CAP_GBUF, pk.BW.start + 1, pk.RATE.start, pk.RATE.start + 2,
+                                 pk.SYS_X, pk.SYS_Y, pk.E_FLOP.start, pk.RLAT.start + 2)):
+            cp[3 * p + 1, col] = nan
+    elif name == "rate-zero":  # every class at the 1e-9 floor, and one class at a time
+        cp[0::2, pk.RATE] = 0.0
+        for k in range(4):
+            cp[4 * k + 1, pk.RATE.start + k] = 0.0
+    elif name == "gbuf-bw-0.01x-100x":
+        gbuf = pk.BW.start + pk._GBUF
+        cp[:, gbuf] = cp[:, gbuf] * torch.logspace(-2, 2, cp.shape[0], device=cp.device)
+    elif name == "signed-zeros":  # -0 and +0 into the max/min of the design and graph terms
+        cp[0::2, pk.RLAT] = -0.0
+        cp[1::2, pk.WLAT] = -0.0
+        cp[0::3, pk.E_FLOP] = -0.0
+        cp[0::4, pk.RATE.start + 1] = -0.0
+        gp[0::5, pk.G_COMP] = -0.0
+        gp[1::7, pk.G_DIMS] = -0.0
+        gp[2::3, pk.G_READ] = -0.0
+        gp[3::4, pk.G_ALLOC_GBUF] = -0.0
+    elif name == "zero-divisors":  # 0/0 and x/0 where a design has a zero bandwidth, capacity or rate
+        for p, col in enumerate((pk.BW.start, pk.BW.start + 1, pk.BW.start + 2, pk.CAP_GBUF, pk.FREQ, pk.SYS_X)):
+            cp[2 * p + 1, col] = 0.0
+        cp[20, pk.BW] = -0.0
+    elif name == "nan-in-the-graph":
+        gp[10, pk.G_COMP.start + 1] = nan
+        gp[20, pk.G_DIMS.start + 2] = nan
+    return gp, cp
+
+
+@pytest.mark.parametrize("lanes", [0, 2, 8])  # 0: the launcher's choice, 32 lanes at 64 designs
+@pytest.mark.parametrize("edge", ["nan-in-one-design", "rate-zero", "gbuf-bw-0.01x-100x", "signed-zeros",
+                                  "zero-divisors", "nan-in-the-graph"])
+def test_popsim_kernel_edges(cuda, edge, lanes):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import popsim_kernel as pk
+
+    gp, cp = _edge(edge, _popsim_graph("bert_base-300", cuda), _popsim_designs(cuda, 64))
+    got = ops.popsim(gp, cp) if lanes == 0 else pk.popsim_lanes(gp, cp, lanes)
+    _popsim_exact(got, ref.popsim_reference(gp, cp))
+
+
+def test_popsim_lanes_rejects_before_launch(cuda):
+    from repro_torch.kernels import popsim_kernel as pk
+    from repro_torch.kernels import runtime
+
+    gp, cp = _popsim_graph("bert_base-300", cuda), _popsim_designs(cuda, 8)
+    before = dict(runtime.LAUNCHES)
+    for bad in (0, 1, 3, 64):
+        with pytest.raises(ValueError):
+            pk.popsim_lanes(gp, cp, bad)
+    with pytest.raises(ValueError):
+        pk.popsim_lanes(gp.cpu(), cp.cpu(), 2)
+    assert runtime.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Port conformance: the popsim packers and the population kernel's plain
-version against the reference kernel (interpret mode) and its oracle.
+version against the reference kernel (interpret mode) and its oracle, on
+populations that scale cell_read_latency and on populations that scale the
+global buffer's bandwidth 0.01x-100x, where the bandwidth-EMA gate switches.
 
 Tolerance: rtol 1e-5, atol 1e-3, as tests/test_kernels.py holds the kernel.
 """
@@ -17,6 +19,7 @@ import repro.kernels.ops as jops
 import repro.kernels.ref as jref
 import repro.workloads as jwl
 import repro_torch.core.dgen as tdgen
+import repro_torch.core.mapper as tmapper
 import repro_torch.core.params as tparams
 import repro_torch.kernels.ops as tops
 import repro_torch.kernels.popsim_kernel as tpk
@@ -36,6 +39,27 @@ def _populations(P: int):
     return tops.pack_chw(tdgen.specialize(tt, ta)), jops.pack_chw(jc)
 
 
+# populations whose global-buffer bandwidth is scaled 0.01x-100x: on bert_base
+# the bandwidth EMA's gate stays open, shuts after the first vertices, or opens
+# and shuts along one walk, by design
+BW_P = 16
+
+
+def _bw_scales(P: int) -> np.ndarray:
+    return np.logspace(-2, 2, P).astype(np.float32)
+
+
+def _bw_populations(P: int):
+    tc = tdgen.specialize(tparams.TechParams.default(CPU), tparams.ArchParams.default(CPU))
+    jc = jdgen.specialize(jparams.TechParams.default(), jparams.ArchParams.default())
+    gbuf = tpk.BW.start + tpk._GBUF
+    tcp = tops.pack_chw(tc).expand(P, -1).clone()
+    tcp[:, gbuf] = tcp[:, gbuf] * torch.from_numpy(_bw_scales(P))
+    jcp = jnp.broadcast_to(jops.pack_chw(jc), (P, tpk.CHW_COLS))
+    jcp = jcp.at[:, gbuf].multiply(jnp.asarray(_bw_scales(P)))
+    return tcp, jcp
+
+
 GRAPHS = {
     "bert_base": lambda: (twl.get_workload("bert_base", device=CPU), jwl.get_workload("bert_base")),
     "lstm_padded": lambda: (twl.get_workload("lstm", device=CPU).pad_to(32), jwl.get_workload("lstm").pad_to(32)),
@@ -48,8 +72,8 @@ def runs():
     for gname, make in GRAPHS.items():
         tg, jg = make()
         tgp, jgp = tops.pack_graph(tg), jops.pack_graph(jg)
-        for P in (8, 64):
-            tcp, jcp = _populations(P)
+        for P, pop in ((8, _populations), (64, _populations), ("bw", _bw_populations)):
+            tcp, jcp = pop(BW_P if P == "bw" else P)
             out[gname, P] = dict(
                 tgp=tgp, jgp=jgp, tcp=tcp, jcp=jcp,
                 got=tops.popsim(tgp, tcp),
@@ -93,6 +117,32 @@ class TestPopsimPlain:
         assert got.shape == (P, tpk.OUT_COLS)
         np.testing.assert_allclose(got, r["kernel"], rtol=1e-5, atol=1e-3)
         np.testing.assert_allclose(got, r["oracle"], rtol=1e-5, atol=1e-3)
+
+    @pytest.mark.parametrize("gname", list(GRAPHS))
+    def test_gbuf_bandwidth_designs_match_reference_kernel_and_oracle(self, runs, gname):
+        r = runs[gname, "bw"]
+        got = r["got"].numpy()
+        assert got.shape == (BW_P, tpk.OUT_COLS)
+        np.testing.assert_allclose(got, r["kernel"], rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(got, r["oracle"], rtol=1e-5, atol=1e-3)
+
+    def test_gbuf_bandwidth_designs_switch_the_gate(self):
+        """On bert_base the scaled designs hold the gate open all along, shut
+        it after the first vertices, and open and shut it along one walk (the
+        mapper's bandwidth EMA before each vertex, the same recurrence)."""
+        g = twl.get_workload("bert_base", device=CPU)
+        chw = tdgen.specialize(tparams.TechParams.default(CPU), tparams.ArchParams.default(CPU))
+        factor = torch.ones(BW_P, 3)
+        factor[:, tpk._GBUF] = torch.from_numpy(_bw_scales(BW_P))
+        chw = dataclasses.replace(chw, mem_bw=chw.mem_bw * factor)
+        cfg = tmapper.MapperCfg()
+        iv = tmapper._vertex_intrinsics(chw, g, cfg)
+        _, bw_prev = tmapper._carry_prefixes(chw, cfg, iv)
+        gate = (bw_prev < tpk.HEADROOM)[:, iv["active"] > 0]
+        flips = (gate[:, 1:] != gate[:, :-1]).sum(-1)
+        assert bool(gate.all(-1).any())  # open at every vertex
+        assert bool(((flips == 1) & gate[:, 0]).any())  # shut after the first vertices
+        assert int(flips.max()) >= 2  # opens and shuts along one walk
 
     def test_wrapper_takes_plain_version_on_cpu(self, runs):
         r = runs["bert_base", 8]
