@@ -12,7 +12,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    instructions in the bf16 attention kernel's SASS, which must hold both;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    on inputs from seeded torch.Generators (one for each kernel), at the shapes
-   the main paths give it (attention: each call must launch the kernel that
+   the main paths give it (K1: the mapper's fused carries, forward and
+   backward, their clamp codes equal to the plain version's, and the bare
+   affine scan; attention: each call must launch the kernel that
    ``flash_attention.route`` names for its dtype and head width; the SSD scan
    in float32: the kernel and its plain version each against the float64
    recurrence on 8 draws; the selective scan at each prompt length the serving
@@ -30,9 +32,15 @@ Phases (each raises on failure, so any failure exits non-zero):
       hold the history against the reference package's (constants below);
    c. 3 steps on the 11 classic workloads (bucket 256) with scan_impl="ref"
       and with the default, which must agree;
-   d. evaluate a population of 65,536 designs on qwen2.5-32b:prefill_32k and
+   d. with MapperCfg(streaming=False), where the occupancy carry decides
+      cycles, the default cycles of the 11 classic workloads and of
+      qwen2.5-32b:prefill_32k against scan_impl="ref" (rtol 1e-5);
+   e. evaluate a population of 65,536 designs on qwen2.5-32b:prefill_32k and
       hold the default design's cycles against the simulator's (the phase's
       wall time printed);
+   then the bare affine scan's own path: the package's public ``affine_scan``,
+   forward and backward, on the LM stack's bandwidth input, held against the
+   fused kernel's bw_prev;
 5. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
@@ -80,7 +88,7 @@ EXP_FP32_OPS = 14
 
 # seeds of the generators the model kernels draw their checks' inputs from,
 # one a kernel, so that no kernel's inputs depend on another's case list
-K3_SEED, K4_SEED, K5_SEED = 3, 4, 5
+K1_SEED, K3_SEED, K4_SEED, K5_SEED = 1, 3, 4, 5
 K4_DRAWS = 8  # float32 draws at 4,096 steps on which K4 is held to the float64 recurrence
 
 SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b")
@@ -322,9 +330,10 @@ def phase_kernels(device) -> dict:
     gen = torch.Generator(device.type).manual_seed(0)
     rand = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
 
-    # K1: forward and backward (the autograd path) at edge shapes and at every
-    # shape the main path gives it: [1, bucket] for each simulate, [5, 1024]
-    # for the LM-stack DOpt, [11, 256] for the classic DOpt
+    # K1, the bare affine scan (the fused carries: carries_records): forward
+    # and backward (the autograd path) at edge shapes and at the shapes the
+    # mapper's carries take: [1, bucket] for each simulate, [5, 1024] for the
+    # LM-stack DOpt, [11, 256] for the classic DOpt
     k1_err = 0.0
     shapes = [(1, 1), (3, 33), (16, 707), (512, 4096), (len(LM), 1024), (len(CLASSIC), 256)]
     shapes += [(1, 1 << k) for k in range(5, 11)]
@@ -341,7 +350,7 @@ def phase_kernels(device) -> dict:
             check(bool(torch.all(err <= tol)), f"affine_scan [{R},{V}] off its plain version by {float(err.max())}")
             k1_err = max(k1_err, float(err.max()))
         print(f"  affine_scan [{R},{V}] fwd+bwd within rtol 1e-5, atol 1e-6*max|x|")
-    # timing at the main path's shape: the LM stack's [5, 1024] bw-EMA input.
+    # timing at the LM stack's [5, 1024] bw-EMA input.
     # ms / plain_ms: device time per call (kernel time, no host dispatch);
     # host_ms / plain_host_ms: CUDA events around each call, host path included
     b = 0.4 * rand(len(LM), 1024)
@@ -349,7 +358,7 @@ def phase_kernels(device) -> dict:
     plain = lambda: ref.affine_scan_reference(0.8, b)  # noqa: E731
     k1 = dict(bytes=2 * b.numel() * 4, ops=2 * b.numel(),
               host_ms=median_ms(kern, device), plain_host_ms=median_ms(plain, device))
-    (k1["ms"], k1["ms_method"]), (k1["plain_ms"], _) = device_ms(kern, 100, "affine_scan_kernel"), device_ms(plain, 20)
+    (k1["ms"], k1["ms_method"]), (k1["plain_ms"], _) = device_ms(kern, 100, "carries_kernel<false>"), device_ms(plain, 20)
 
     # K2: the qwen DFG against populations that scale cell_read_latency, held
     # to its plain version bit for bit (the kernel keeps its operation order,
@@ -377,7 +386,92 @@ def phase_kernels(device) -> dict:
             (k2["ms"], k2["ms_method"]), (k2["plain_ms"], _) = k2_ms_by_P[P], device_ms(plain, 1)
     k2["ms_by_P"] = {P: ms for P, (ms, _) in k2_ms_by_P.items()}
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
-    return {"affine_scan": k1, "popsim": k2}
+    return {"affine_scan": k1, **carries_records(device), "popsim": k2}
+
+
+# shapes the main path gives K1's fused kernels: [1, bucket] for each
+# simulate (qwen's 1024 the largest), [5, 1024] for the LM-stack DOpt,
+# [11, 256] for the classic DOpt; the records are timed at [5, 1024]
+CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256))
+
+
+def carries_records(device) -> dict:
+    """K1's fused kernels, the mapper's two carries forward and their
+    closed-form backward, against their plain versions at edge shapes and the
+    main path's (inputs from their own seeded generator; alloc near cap, so
+    rows clamp often): occ_prev, bw_prev, the clamp codes (equal), grad_alloc,
+    grad_bw_x and grad_cap.  Each timed at CARRY_SHAPES; the backward as the
+    mapper runs it, with no gradient for alloc."""
+    import torch
+
+    from repro_torch.core import mapper
+    from repro_torch.kernels import ref, sscan
+
+    decays = (mapper._OCC_DECAY, mapper._BW_DECAY, mapper._BW_GAIN)
+    gen = torch.Generator(device.type).manual_seed(K1_SEED)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
+
+    def draw(R, V):
+        cap = 1.0 + 2.0 * rand(R)
+        return cap[:, None] * (0.2 + 0.7 * rand(R, V)), 2.0 * rand(R, V), cap
+
+    err = {"forward": 0.0, "backward": 0.0}
+    shapes = [(1, 1), (3, 33), (16, 707), (512, 4096), (3, 2500), *CARRY_SHAPES]
+    shapes += [(1, 1 << k) for k in range(5, 11)]
+    for R, V in shapes:
+        alloc, bw_x, cap = draw(R, V)
+        g_occ, g_bw = rand(R, V) - 0.5, rand(R, V) - 0.5
+        occ, bw, code = sscan.mapper_carries_op(alloc, bw_x, cap, *decays)
+        ga, gb, gc = sscan.mapper_carries_backward_op(g_occ, g_bw, code, *decays, True)
+        w_occ, w_bw, w_code = ref.mapper_carries_reference(alloc, bw_x, cap, *decays)
+        wa, wb, wc = ref.mapper_carries_backward_reference(g_occ, g_bw, w_code, *decays)
+        check(torch.equal(code, w_code), f"mapper_carries [{R},{V}]: {int((code != w_code).sum())} clamp codes "
+                                         "differ from the plain version's")
+        clamped = float((code == 0).float().mean())
+        check(V < 256 or 0.05 < clamped < 0.95, f"mapper_carries [{R},{V}]: {clamped:.3f} of vertices clamp")
+        scale_c = ref.mapper_carries_backward_reference(g_occ.abs(), g_bw.abs(), w_code, *decays)[2]
+        for what, got, want, atol in (("occ_prev", occ, w_occ, None), ("bw_prev", bw, w_bw, None),
+                                      ("grad_alloc", ga, wa, None), ("grad_bw_x", gb, wb, None),
+                                      ("grad_cap", gc, wc, 1e-6 * scale_c)):
+            atol = 1e-6 * want.abs().max() if atol is None else atol
+            e = (got - want).abs()
+            check(bool(torch.isfinite(got).all()) and bool(torch.all(e <= atol + 1e-5 * want.abs())),
+                  f"mapper_carries {what} [{R},{V}] off its plain version by {float(e.max())}")
+            key = "forward" if what in ("occ_prev", "bw_prev") else "backward"
+            err[key] = max(err[key], float(e.max()))
+        print(f"  mapper_carries [{R},{V}] fwd+bwd within rtol 1e-5, atol 1e-6*max|want| (grad_cap: of its "
+              f"|terms|' sum); codes equal, {clamped:.3f} clamped")
+
+    rec = {}
+    for name, kernel in (("mapper_carries", "carries_kernel<true>"),
+                         ("mapper_carries_backward", "carries_backward_kernel")):
+        by_shape = {}
+        for R, V in CARRY_SHAPES:
+            alloc, bw_x, cap = draw(R, V)
+            cap1 = cap[:1]  # the mapper's one design over R workloads
+            occ, bw, code = sscan.mapper_carries_op(alloc, bw_x, cap1, *decays)
+            g_occ, g_bw = rand(R, V) - 0.5, rand(R, V) - 0.5
+            if name == "mapper_carries":
+                kern = lambda: sscan.mapper_carries_op(alloc, bw_x, cap1, *decays)  # noqa: E731
+                plain = lambda: ref.mapper_carries_reference(alloc, bw_x, cap1, *decays)  # noqa: E731
+                # alloc, bw_x, cap read; occ_prev, bw_prev (float32) and the code (uint8) written;
+                # per vertex: occupancy 0.5*s, + alloc, min, the tie test; bandwidth 0.2*x, 0.8*t, +
+                size, ops = (4 * R * V * 2 + 4) + (4 * R * V * 2 + R * V), 7 * R * V
+            else:
+                kern = lambda: sscan.mapper_carries_backward_op(g_occ, g_bw, code, *decays, False)  # noqa: E731
+                plain = lambda: ref.mapper_carries_backward_reference(g_occ, g_bw, code, *decays)  # noqa: E731
+                # g_occ, g_bw and the code read; grad_bw_x and grad_cap written;
+                # per vertex: occupancy 0.5*m, *lambda, + g, 1-m, *lambda, + sum; bandwidth 0.2*mu, 0.8*mu, + g
+                size, ops = (4 * R * V * 2 + R * V) + (4 * R * V + 4 * R), 9 * R * V
+            ms, method = device_ms(kern, 100, kernel)
+            by_shape[f"{R}x{V}"] = ms
+            if (R, V) == (len(LM), 1024):
+                r = dict(bytes=size, ops=ops, ms=ms, ms_method=method, host_ms=median_ms(kern, device),
+                         plain_host_ms=median_ms(plain, device), plain_ms=device_ms(plain, 20)[0],
+                         max_abs_err=err["forward" if name == "mapper_carries" else "backward"])
+        r["ms_by_shape"] = by_shape
+        rec[name] = r
+    return rec
 
 
 def _bound_ratio(got, want, atol: float, rtol: float) -> float:
@@ -817,6 +911,54 @@ def phase_optimize(device) -> None:
     print("  optimize classic: default and scan_impl='ref' histories agree within rtol 1e-4")
 
 
+def phase_no_streaming(device) -> None:
+    """Where the occupancy carry decides cycles: with MapperCfg(streaming=False)
+    the default (auto) cycles of the 11 classic workloads (bucket 256) and of
+    qwen2.5-32b:prefill_32k (bucket 1024) against the sequential oracle
+    (scan_impl="ref"), within rtol 1e-5.  With streaming on, the occupancy
+    reaches no cycle count, so the checks above would pass with it wrong."""
+    from repro_torch.core import ArchParams, Graph, MapperCfg, TechParams, simulate_stacked
+    from repro_torch.workloads import get_workload, lm_cell
+
+    tech, arch = TechParams.default(device), ArchParams.default(device)
+    stacks = {"classic [11,256]": (CLASSIC, Graph.stack([get_workload(n, device=device).pad_to(256)
+                                                         for n in CLASSIC])),
+              "qwen2.5-32b:prefill_32k [1,1024]": (["qwen2.5-32b:prefill_32k"], Graph.stack(
+                  [lm_cell("qwen2.5-32b", "prefill_32k", device=device).pad_to(1024)]))}
+    for what, (names, gs) in stacks.items():
+        cyc = {impl: simulate_stacked(tech, arch, gs, mcfg=MapperCfg(streaming=False, scan_impl=impl)).cycles
+               for impl in ("auto", "ref")}
+        ok, err = rel_close(cyc["auto"].cpu(), cyc["ref"].cpu(), 1e-5)
+        check(ok, f"streaming=False {what}: default cycles off scan_impl='ref' by rel {err:.3g}")
+        print(f"  no streaming {what}: default cycles within rel {err:.2e} of scan_impl='ref'; "
+              + ", ".join(f"{n} {float(c):.0f}" for n, c in zip(names, cyc["auto"])))
+
+
+def phase_affine_scan(device) -> None:
+    """The bare affine scan through the package's public entry point (the
+    reference package's ``repro.kernels.sscan.affine_scan``), forward and
+    backward, on the LM stack's bandwidth-EMA input at the default design:
+    its inclusive prefix, one vertex on, is the fused kernel's bw_prev."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import ArchParams, Graph, TechParams, mapper, specialize
+    from repro_torch.workloads import lm_cell
+
+    gs = Graph.stack([lm_cell(a, s, device=device).pad_to(1024) for a, s in LM])
+    chw = specialize(TechParams.default(device), ArchParams.default(device))
+    iv = mapper._vertex_intrinsics(chw, gs, mapper.MapperCfg())
+    x = (mapper._BW_GAIN * iv["bw_x"]).detach().requires_grad_(True)
+    ema = kernels.affine_scan(mapper._BW_DECAY, x)
+    ema.sum().backward()
+    _, bw_prev = mapper._carry_prefixes(chw, mapper.MapperCfg(), iv)
+    err = _close(ema[..., :-1].detach(), bw_prev[..., 1:].detach(), 1e-6 * float(bw_prev.abs().max()), 1e-5,
+                 "affine_scan against the fused kernel's bw_prev")
+    check(bool(torch.isfinite(x.grad).all()), "affine_scan: non-finite gradient")
+    print(f"  affine_scan on the LM stack's bandwidth input {tuple(x.shape)}: within {err:.3g} of the fused "
+          "kernel's bw_prev (rtol 1e-5, atol 1e-6*max); gradient finite")
+
+
 def phase_population(device) -> None:
     import torch
 
@@ -883,11 +1025,14 @@ def phase_profile(device) -> None:
               + "; ".join(f"{k[:48]} {t:.4f} ms x{c}" for t, c, k in top))
 
 
-SIM_KERNELS = ("affine_scan", "popsim")
+SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
+SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
 AGREE_KERNELS = ("flash_attention",)  # float32 attention
 META = {  # kernel -> (source, the TPU kernel it replaces)
     "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
+    "mapper_carries": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
+    "mapper_carries_backward": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:186"),
     "popsim": ("src/repro_torch/kernels/csrc/popsim.cu", "src/repro/kernels/popsim_kernel.py:152"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -934,7 +1079,9 @@ def main() -> int:
     rec.update(phase_model_kernels(device))
 
     launches = drive("simulator", [lambda: phase_simulate(device), lambda: phase_optimize(device),
-                                   lambda: phase_population(device)], SIM_KERNELS)
+                                   lambda: phase_no_streaming(device), lambda: phase_population(device)],
+                     SIM_KERNELS)
+    launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
     zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers
     want = zamba2.n_layers // zamba2.hybrid.attn_every * len(SERVE_PROMPTS)
@@ -958,7 +1105,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bound, bound_by=by, bound_terms_ms=terms, library_ms=r.get("library_ms"),
         ))
-        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P"):
+        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape"):
             if key in r:
                 kernels[-1][key] = r[key]
         host = f", host path {r['host_ms']:.6f} ms per call" if "host_ms" in r else ""
@@ -968,6 +1115,8 @@ def main() -> int:
                       if "ms_by_kernel" in r else "")
         by_prompt += ("; by P " + ", ".join(f"{P}: {ms:.6f}" for P, ms in r["ms_by_P"].items())
                       if "ms_by_P" in r else "")
+        by_prompt += ("; by shape " + ", ".join(f"{k}: {ms:.6f}" for k, ms in r["ms_by_shape"].items())
+                      if "ms_by_shape" in r else "")
         library = f"; library {r['library_ms']:.6f} ms" if r.get("library_ms") is not None else ""
         print(f"  {name}: device {r['ms']:.6f} ms ({r['ms_method']}){host}{by_prompt}; plain device "
               f"{r['plain_ms']:.6f} ms{library}; bound {bound:.6f} ms ({by}; "

@@ -30,10 +30,10 @@ none.  Reductions run over the vertex axis.
 
   * ``"auto"``   (default) — ``"assoc"`` for graphs with >= 32 vertices,
     else the sequential ``"ref"``;
-  * ``"assoc"``  — the prefix-scan formulation above.  The bandwidth EMA
-    goes through ``kernels.sscan.affine_scan``: the CUDA kernel on a CUDA
-    tensor, its plain doubling scan on a CPU tensor.  The clamped occupancy
-    prefix is a doubling scan in plain PyTorch;
+  * ``"assoc"``  — the prefix-scan formulation above.  Both carries go
+    through one call of ``kernels.sscan.mapper_carries`` (K1): on a CUDA
+    tensor one kernel launch forward and one for the closed-form backward,
+    on a CPU tensor their plain doubling scans;
   * ``"pallas"`` — the reference package's name for the kernel dispatch;
     here it is the same computation as ``"assoc"``;
   * ``"ref"``    — the sequential loop over vertices with the whole vertex
@@ -48,8 +48,8 @@ import torch
 from repro_torch.core.dgen import ConcreteHW
 from repro_torch.core.graph import Graph
 from repro_torch.core.params import COMP_IDX, MEM_IDX, TensorTree, const, max_const
-from repro_torch.kernels.ref import affine_scan_reference
-from repro_torch.kernels.sscan import affine_scan
+from repro_torch.kernels.ref import affine_scan_reference, minaffine_scan_reference
+from repro_torch.kernels.sscan import mapper_carries
 
 _GBUF = MEM_IDX["globalBuf"]
 _MAIN = MEM_IDX["mainMem"]
@@ -58,6 +58,7 @@ _SYS = COMP_IDX["systolicArray"]
 
 _OCC_DECAY = 0.5  # buffer-residency decay per vertex (Alg. 7 carry)
 _BW_DECAY = 0.8  # bandwidth-EMA decay per vertex
+_BW_GAIN = 0.2  # weight of the vertex's own utilization in the EMA
 _ASSOC_MIN_V = 32  # "auto": below this the sequential scan is used
 
 
@@ -261,13 +262,8 @@ def _vertex_finish(chw: ConcreteHW, g: Graph, cfg: MapperCfg, iv: dict,
 
 
 # --------------------------------------------------------------------------- #
-# carry prefixes: log-step doubling scans (O(log V) depth)
+# carry prefixes: the public doubling scans and the carries kernel's call
 # --------------------------------------------------------------------------- #
-
-
-def _exclusive(after: torch.Tensor) -> torch.Tensor:
-    """Shift an inclusive prefix to the state *before* each vertex (x0 = 0)."""
-    return torch.cat([torch.zeros_like(after[..., :1]), after[..., :-1]], -1)
 
 
 def affine_prefix_assoc(decay: float, add: torch.Tensor) -> torch.Tensor:
@@ -278,36 +274,16 @@ def affine_prefix_assoc(decay: float, add: torch.Tensor) -> torch.Tensor:
 
 
 def minaffine_prefix_assoc(decay: float, add: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix of ``s' = min(decay*s + add_i, cap)`` (s0 = 0).
-
-    Maps s -> min(a*s + b, c) are closed under composition (later
-    (a2,b2,c2) ∘ earlier (a1,b1,c1) = (a1*a2, a2*b1 + b2,
-    min(a2*c1 + b2, c2)) for a2 >= 0), so the clamped recurrence is a
-    doubling scan too.  Positions below the shift ``d`` are complete and
-    kept as they are, so no identity element is needed.
-    """
-    a = torch.full_like(add, decay)
-    b = add
-    c = torch.broadcast_to(cap, add.shape).to(add.dtype)
-    v = add.shape[-1]
-    d = 1
-    while d < v:
-        a2, b2, c2 = a[..., d:], b[..., d:], c[..., d:]
-        a1, b1, c1 = a[..., :-d], b[..., :-d], c[..., :-d]
-        a_n = torch.cat([a[..., :d], a1 * a2], -1)
-        b_n = torch.cat([b[..., :d], a2 * b1 + b2], -1)
-        c = torch.cat([c[..., :d], torch.minimum(a2 * c1 + b2, c2)], -1)
-        a, b = a_n, b_n
-        d *= 2
-    return torch.minimum(b, c)  # applied to s0 = 0
+    """Inclusive prefix of ``s' = min(decay*s + add_i, cap)`` (s0 = 0), O(log V)
+    depth: maps s -> min(a*s + b, c) compose, later (a2,b2,c2) ∘ earlier
+    (a1,b1,c1) = (a1*a2, a2*b1 + b2, min(a2*c1 + b2, c2)) for a2 >= 0."""
+    return minaffine_scan_reference(decay, add, cap)
 
 
 def _carry_prefixes(chw: ConcreteHW, cfg: MapperCfg, iv: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """The two Alg.-7 carries as exclusive prefixes (pre-vertex states).
-    The bandwidth EMA goes through the affine-scan kernel's wrapper."""
-    occ_after = minaffine_prefix_assoc(_OCC_DECAY, iv["alloc_gbuf"], chw.capacity[..., _GBUF, None])
-    bw_after = affine_scan(_BW_DECAY, 0.2 * iv["bw_x"])
-    return _exclusive(occ_after), _exclusive(bw_after)
+    """The two Alg.-7 carries as exclusive prefixes (pre-vertex states), in
+    one call of the carries kernel's wrapper."""
+    return mapper_carries(iv["alloc_gbuf"], iv["bw_x"], chw.capacity[..., _GBUF], _OCC_DECAY, _BW_DECAY, _BW_GAIN)
 
 
 def _map_workload_assoc(chw: ConcreteHW, g: Graph, cfg: MapperCfg) -> MapState:

@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-affine_scan     — the mapper's bandwidth-EMA carry (``csrc/affine_scan.cu``)
+affine_scan     — K1: the mapper's two Alg.-7 carries (buffer occupancy and
+                  bandwidth EMA) in one launch forward and one backward
+                  (``sscan.mapper_carries``), and the bare affine scan
+                  (``csrc/affine_scan.cu``)
 popsim          — DSim population evaluation (``csrc/popsim.cu``)
 flash_attention — GQA attention with an online softmax (``flash_attention.py``,
                   ``csrc/flash_attention.cu``)

@@ -15,9 +15,10 @@ from repro_torch.kernels import popsim_kernel as pk
 NEG_INF = -1e30  # finite mask value of the attention kernel and its plain version
 
 
-def affine_scan_reference(decay: float, add: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def affine_scan_reference(decay, add: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive prefix of ``s' = decay*s + add_i`` (s0 = 0) along the last
     axis, as a log-step doubling scan; ``reverse`` scans from the end.
+    ``decay`` is a number, or a tensor of ``add``'s shape (one a position).
 
     Elements are affine maps (a, b): s -> a*s + b; composing an earlier
     (a1, b1) with a later (a2, b2) gives (a1*a2, a2*b1 + b2).  After the step
@@ -25,8 +26,9 @@ def affine_scan_reference(decay: float, add: torch.Tensor, reverse: bool = False
     ``i-2d+1 .. i``; positions below ``d`` are already complete.
     """
     if reverse:
-        return affine_scan_reference(decay, add.flip(-1)).flip(-1)
-    a = torch.full_like(add, decay)
+        flip = decay.flip(-1) if torch.is_tensor(decay) else decay
+        return affine_scan_reference(flip, add.flip(-1)).flip(-1)
+    a = decay.expand_as(add) if torch.is_tensor(decay) else torch.full_like(add, decay)
     b = add.clone()  # a new tensor even when V <= 1 and no step runs
     v = add.shape[-1]
     d = 1
@@ -35,6 +37,84 @@ def affine_scan_reference(decay: float, add: torch.Tensor, reverse: bool = False
         a = torch.cat([a[..., :d], a[..., :-d] * a[..., d:]], -1)
         d *= 2
     return b
+
+
+def minaffine_scan_reference(decay: float, add: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix of ``s' = min(decay*s + add_i, cap)`` (s0 = 0) along
+    the last axis, ``cap`` broadcast against ``add``.
+
+    Maps s -> min(a*s + b, c) are closed under composition (later
+    (a2,b2,c2) ∘ earlier (a1,b1,c1) = (a1*a2, a2*b1 + b2,
+    min(a2*c1 + b2, c2)) for a2 >= 0), so the clamped recurrence is a
+    doubling scan too.  Positions below the shift ``d`` are complete and
+    kept as they are, so no identity element is needed.
+    """
+    a = torch.full_like(add, decay)
+    b = add
+    c = torch.broadcast_to(cap, add.shape).to(add.dtype)
+    v = add.shape[-1]
+    d = 1
+    while d < v:
+        a2, b2, c2 = a[..., d:], b[..., d:], c[..., d:]
+        a1, b1, c1 = a[..., :-d], b[..., :-d], c[..., :-d]
+        a_n = torch.cat([a[..., :d], a1 * a2], -1)
+        b_n = torch.cat([b[..., :d], a2 * b1 + b2], -1)
+        c = torch.cat([c[..., :d], torch.minimum(a2 * c1 + b2, c2)], -1)
+        a, b = a_n, b_n
+        d *= 2
+    return torch.minimum(b, c)  # applied to s0 = 0
+
+
+def _exclusive(after: torch.Tensor) -> torch.Tensor:
+    """Shift an inclusive prefix to the state *before* each position (0 first)."""
+    return torch.cat([torch.zeros_like(after[..., :1]), after[..., :-1]], -1)
+
+
+def _exclusive_reverse(after: torch.Tensor) -> torch.Tensor:
+    """The same for a prefix taken from the end (0 last)."""
+    return torch.cat([after[..., 1:], torch.zeros_like(after[..., :1])], -1)
+
+
+def mapper_carries_reference(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, occ_decay: float,
+                             bw_decay: float, bw_gain: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The mapper's two Alg.-7 carries as exclusive prefixes (the state before
+    each vertex, 0 at the first), with the occupancy clamp code.
+
+    ``alloc`` and ``bw_x`` are [..., V], ``cap`` [...]; they broadcast, and
+    every output has the broadcast shape [..., V]:
+
+      * ``occ_prev``: s before vertex j of ``s' = min(occ_decay*s + alloc_j, cap)``;
+      * ``bw_prev``: t before vertex j of ``t' = bw_decay*t + bw_gain*bw_x_j``;
+      * ``code`` (uint8): 2*m_j, m_j = d s'/d u at u = occ_decay*s + alloc_j:
+        1 below ``cap``, 0 above, 1/2 on a tie (``torch.minimum``'s split).
+    """
+    lead = torch.broadcast_shapes(alloc.shape[:-1], bw_x.shape[:-1], cap.shape)
+    v = bw_x.shape[-1]
+    alloc = alloc.expand(*lead, v)
+    cap = cap.expand(lead)[..., None]
+    occ_prev = _exclusive(minaffine_scan_reference(occ_decay, alloc, cap))
+    bw_prev = _exclusive(affine_scan_reference(bw_decay, bw_gain * bw_x.expand(*lead, v)))
+    u = occ_decay * occ_prev + alloc
+    code = (u < cap).to(torch.uint8) * 2 + (u == cap).to(torch.uint8)
+    return occ_prev, bw_prev, code
+
+
+def mapper_carries_backward_reference(g_occ: torch.Tensor, g_bw: torch.Tensor, code: torch.Tensor,
+                                      occ_decay: float, bw_decay: float, bw_gain: float
+                                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The closed-form gradient of :func:`mapper_carries_reference` from the
+    cotangents of ``occ_prev`` and ``bw_prev`` ([..., V]) and the forward's
+    ``code``: (grad_alloc [..., V], grad_bw_x [..., V], grad_cap [...]).
+
+    With m = code/2: lambda_j = g_occ[j+1] + occ_decay*m_{j+1}*lambda_{j+1}
+    (0 at the last vertex), a reversed doubling scan with a per-position
+    decay, shifted by one; grad_alloc = m*lambda, grad_cap = sum (1-m)*lambda;
+    mu_j = g_bw[j+1] + bw_decay*mu_{j+1}, grad_bw_x = bw_gain*mu.
+    """
+    m = 0.5 * code.to(torch.float32)
+    lam = _exclusive_reverse(affine_scan_reference(occ_decay * m, g_occ, reverse=True))
+    mu = _exclusive_reverse(affine_scan_reference(bw_decay, g_bw, reverse=True))
+    return m * lam, bw_gain * mu, torch.sum((1.0 - m) * lam, -1)
 
 
 def _t(x: torch.Tensor, y) -> torch.Tensor:

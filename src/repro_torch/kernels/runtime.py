@@ -16,7 +16,9 @@ This is the one module of ``repro_torch`` that compiles or loads CUDA code.
     PyTorch header is compiled, so a cold build takes seconds, not minutes.
     A build or launch failure raises; nothing falls back to a plain version.
   * :data:`LAUNCHES` / :func:`reset_launches` — one count per kernel, bumped
-    by its wrapper exactly where it launches the kernel.
+    by its wrapper exactly where it launches the kernel.  ``affine_scan.cu``
+    holds three kernels: the bare affine scan and the mapper's two carries,
+    forward and backward, each counted under its own name.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ EXTRA_FLAGS = {"affine_scan": ("--fmad=false",), "popsim": ("--fmad=false",)}
 def flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, "mapper_carries", "mapper_carries_backward")}
 BUILD_LOG: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its build
 BUILD_SECONDS: dict[str, float] = {}  # kernel name -> seconds from the builds' start to its end
 
@@ -173,29 +175,38 @@ def build_all() -> dict[str, pathlib.Path]:
     return targets
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# kernel name -> (C entry point, its argument types); every entry returns the
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# source name -> {C entry point: its argument types}; every entry returns the
 # cudaError_t of its launch as an int
 _ENTRY = {
-    "affine_scan": ("affine_scan_launch", [_P, _P, _I, _I, _F, _I, _P]),
+    "affine_scan": {
+        # b, s, rows, V, decay, reverse, stream
+        "affine_scan_launch": [_P, _P, _I, _I, _F, _I, _P],
+        # alloc, x and cap, each with its (row, element) strides (cap: one);
+        # occ_prev, bw_prev, code, R, V, occ decay, bw decay, bw gain, stream
+        "mapper_carries_launch": [_P, _L, _L, _P, _L, _L, _P, _L, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+        # g_occ, g_bw with their strides, code, grad_alloc (or null), grad_x,
+        # grad_cap, R, V, occ decay, bw decay, bw gain, stream
+        "mapper_carries_backward_launch": [_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    },
     # graph, chw, out, V, P, lanes a design (0: the launcher's choice; others a test seam), stream
-    "popsim": ("popsim_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "popsim": {"popsim_launch": [_P, _P, _P, _I, _I, _I, _P]},
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, bf16, stream
-    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    "flash_attention": {"flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _P]},
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, scale, stream (bf16 only)
-    "flash_attention_sm90": ("flash_attention_sm90_launch", [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "flash_attention_sm90": {"flash_attention_sm90_launch": [_P] * 4 + [_I] * 7 + [_F, _P]},
     # x, dt, A, B, C, y, state, scratch, Bt, S, H, P, N, bf16, heads a block, stream
-    "ssd_chunk_scan": ("ssd_chunk_scan_launch", [_P] * 8 + [_I] * 7 + [_P]),
+    "ssd_chunk_scan": {"ssd_chunk_scan_launch": [_P] * 8 + [_I] * 7 + [_P]},
     # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream
-    "selective_scan": ("selective_scan_launch", [_P] * 8 + [_I] * 5 + [_P]),
+    "selective_scan": {"selective_scan_launch": [_P] * 8 + [_I] * 5 + [_P]},
 }
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    entry, argtypes = _ENTRY[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = _I
+    for entry, argtypes in _ENTRY[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = _I
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,8 +1,14 @@
-"""Two scans as hand-written CUDA kernels:
+"""Three scans as hand-written CUDA kernels:
 
-* the first-order affine prefix ``s_i = decay * s_{i-1} + b_i`` (s0 = 0) —
-  the DSim mapper's bandwidth-EMA carry — (``csrc/affine_scan.cu``) with a
-  differentiable wrapper;
+* the DSim mapper's two Alg.-7 carries, buffer occupancy
+  ``s' = min(occ_decay*s + alloc, cap)`` and the bandwidth EMA
+  ``t' = bw_decay*t + bw_gain*x``, as exclusive prefixes in one launch, and
+  their closed-form gradient in one more (``csrc/affine_scan.cu``), as
+  :func:`mapper_carries`; plain versions ``ref.mapper_carries_reference`` and
+  ``ref.mapper_carries_backward_reference``;
+* the bare first-order affine prefix ``s_i = decay * s_{i-1} + b_i`` (s0 = 0)
+  (the same source, the occupancy carry compiled out) with a differentiable
+  wrapper, :func:`affine_scan`;
 * the Mamba1 selective scan (``csrc/selective_scan.cu``), forward only, as
   :func:`selective_scan`; its plain version is ``ref.selective_scan``.
 
@@ -10,17 +16,18 @@
 ``db_k = sum_{i>=k} decay^(i-k) g_i``, so the backward launches the same
 kernel with ``reverse=1`` on the cotangent and needs no residuals.
 
-The scan is the torch op ``torch.ops.repro_torch.affine_scan``: its CUDA
+Each scan is a torch op (``torch.ops.repro_torch.*``): its CUDA
 implementation launches the kernel, its CPU implementation is the plain
-version, ``ref.affine_scan_reference`` (a log-step doubling scan).  The
-dispatcher picks by the tensor's device; there is no other fallback.
+version (log-step doubling scans).  The dispatcher picks by the tensor's
+device; there is no other fallback.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ref import affine_scan_reference
+from repro_torch.kernels.ref import (affine_scan_reference, mapper_carries_backward_reference,
+                                     mapper_carries_reference)
 from repro_torch.kernels.ref import selective_scan as selective_scan_plain
 
 
@@ -67,6 +74,170 @@ def affine_scan(decay: float, add: torch.Tensor) -> torch.Tensor:
     """Differentiable inclusive prefix of ``s' = decay*s + b`` along the last
     axis of ``add`` (any leading batch axes)."""
     return _AffineScan.apply(add, float(decay))
+
+
+# --------------------------------------------------------------------------- #
+# the mapper's two carries, forward and backward
+# --------------------------------------------------------------------------- #
+#
+# The ops take rows [Ra, V] of alloc, [Rb, V] of bw_x and [Rc] of cap, each
+# count 1 or R (one row broadcast over all), and return [R, V]; the kernel
+# reads the inputs through their strides, so a broadcast row or a strided
+# view (alloc is a column of the graph's [..., V, 3] allocations) is no copy.
+
+
+def _rows(*ts: torch.Tensor) -> int:
+    """R, after checking that every count of rows is 1 or R."""
+    counts = [t.shape[0] for t in ts]
+    R = 0 if 0 in counts else max(counts)
+    if any(c not in (1, R) for c in counts):
+        raise ValueError(f"mapper_carries: row counts {counts} do not broadcast")
+    return R
+
+
+def _check_carries(alloc, bw_x, cap) -> tuple[int, int]:
+    if any(t.dtype != torch.float32 for t in (alloc, bw_x, cap)):
+        raise TypeError(f"mapper_carries takes float32, got {alloc.dtype}, {bw_x.dtype}, {cap.dtype}")
+    if alloc.ndim != 2 or bw_x.ndim != 2 or cap.ndim != 1 or alloc.shape[1] != bw_x.shape[1]:
+        raise ValueError(f"mapper_carries: alloc {tuple(alloc.shape)}, bw_x {tuple(bw_x.shape)}, "
+                         f"cap {tuple(cap.shape)} are not [R,V], [R,V], [R]")
+    if len({t.device for t in (alloc, bw_x, cap)}) != 1:
+        raise ValueError("mapper_carries: all inputs must be on one device")
+    return _rows(alloc, bw_x, cap), bw_x.shape[1]
+
+
+def _strides(t: torch.Tensor, R: int) -> tuple[int, int]:
+    """(row, element) strides of [n, V] rows, the row stride 0 where one row serves R."""
+    return (t.stride(0) if t.shape[0] == R else 0), t.stride(1)
+
+
+@torch.library.custom_op("repro_torch::mapper_carries", mutates_args=(), device_types="cpu")
+def mapper_carries_op(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, occ_decay: float,
+                      bw_decay: float, bw_gain: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(occ_prev, bw_prev, code) [R, V] (plain version, CPU)."""
+    R, V = _check_carries(alloc, bw_x, cap)
+    return mapper_carries_reference(alloc.expand(R, V), bw_x.expand(R, V), cap.expand(R), occ_decay, bw_decay,
+                                    bw_gain)
+
+
+@mapper_carries_op.register_kernel("cuda")
+def _mapper_carries_cuda(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, occ_decay: float,
+                         bw_decay: float, bw_gain: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    R, V = _check_carries(alloc, bw_x, cap)
+    if not occ_decay >= 0.0:
+        raise ValueError(f"mapper_carries: occ_decay {occ_decay} < 0 (min-affine maps compose only for >= 0)")
+    occ = torch.empty((R, V), dtype=torch.float32, device=bw_x.device)
+    bw = torch.empty_like(occ)
+    code = torch.empty((R, V), dtype=torch.uint8, device=bw_x.device)
+    if R * V == 0:  # nothing to scan, no launch
+        return occ, bw, code
+    lib = runtime.library("affine_scan")
+    runtime.count_launch("mapper_carries")
+    err = lib.mapper_carries_launch(alloc.data_ptr(), *_strides(alloc, R), bw_x.data_ptr(), *_strides(bw_x, R),
+                                    cap.data_ptr(), cap.stride(0) if cap.shape[0] == R else 0, occ.data_ptr(),
+                                    bw.data_ptr(), code.data_ptr(), R, V, float(occ_decay), float(bw_decay),
+                                    float(bw_gain), runtime.stream_handle(bw_x))
+    runtime.check_launch("mapper_carries", err)
+    return occ, bw, code
+
+
+@mapper_carries_op.register_fake
+def _mapper_carries_fake(alloc, bw_x, cap, occ_decay, bw_decay, bw_gain):
+    R, V = _check_carries(alloc, bw_x, cap)
+    occ = bw_x.new_empty((R, V))
+    return occ, torch.empty_like(occ), occ.new_empty((R, V), dtype=torch.uint8)
+
+
+def _check_carries_backward(g_occ, g_bw, code) -> tuple[int, int]:
+    if g_occ.dtype != torch.float32 or g_bw.dtype != torch.float32 or code.dtype != torch.uint8:
+        raise TypeError(f"mapper_carries_backward takes float32 cotangents and a uint8 code, got "
+                        f"{g_occ.dtype}, {g_bw.dtype}, {code.dtype}")
+    if not (g_occ.ndim == 2 and g_occ.shape == g_bw.shape == code.shape):
+        raise ValueError(f"mapper_carries_backward: g_occ {tuple(g_occ.shape)}, g_bw {tuple(g_bw.shape)}, "
+                         f"code {tuple(code.shape)} are not all one [R,V]")
+    if len({t.device for t in (g_occ, g_bw, code)}) != 1:
+        raise ValueError("mapper_carries_backward: all inputs must be on one device")
+    return code.shape
+
+
+@torch.library.custom_op("repro_torch::mapper_carries_backward", mutates_args=(), device_types="cpu")
+def mapper_carries_backward_op(g_occ: torch.Tensor, g_bw: torch.Tensor, code: torch.Tensor, occ_decay: float,
+                               bw_decay: float, bw_gain: float,
+                               need_alloc: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(grad_alloc [R, V] or [0] without ``need_alloc``, grad_bw_x [R, V],
+    grad_cap [R]) (plain version, CPU)."""
+    _check_carries_backward(g_occ, g_bw, code)
+    ga, gb, gc = mapper_carries_backward_reference(g_occ, g_bw, code, occ_decay, bw_decay, bw_gain)
+    return (ga if need_alloc else ga.new_empty(0)), gb, gc
+
+
+@mapper_carries_backward_op.register_kernel("cuda")
+def _mapper_carries_backward_cuda(g_occ: torch.Tensor, g_bw: torch.Tensor, code: torch.Tensor, occ_decay: float,
+                                  bw_decay: float, bw_gain: float,
+                                  need_alloc: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    R, V = _check_carries_backward(g_occ, g_bw, code)
+    code = code.contiguous()
+    ga = torch.empty((R, V) if need_alloc else (0,), dtype=torch.float32, device=code.device)
+    gb = torch.empty((R, V), dtype=torch.float32, device=code.device)
+    gc = torch.empty((R,), dtype=torch.float32, device=code.device)
+    if R * V == 0:  # nothing to scan, no launch
+        return ga, gb, gc.zero_()
+    lib = runtime.library("affine_scan")
+    runtime.count_launch("mapper_carries_backward")
+    err = lib.mapper_carries_backward_launch(g_occ.data_ptr(), *_strides(g_occ, R), g_bw.data_ptr(),
+                                             *_strides(g_bw, R), code.data_ptr(),
+                                             ga.data_ptr() if need_alloc else None, gb.data_ptr(), gc.data_ptr(),
+                                             R, V, float(occ_decay), float(bw_decay), float(bw_gain),
+                                             runtime.stream_handle(code))
+    runtime.check_launch("mapper_carries_backward", err)
+    return ga, gb, gc
+
+
+@mapper_carries_backward_op.register_fake
+def _mapper_carries_backward_fake(g_occ, g_bw, code, occ_decay, bw_decay, bw_gain, need_alloc):
+    R, V = _check_carries_backward(g_occ, g_bw, code)
+    return g_bw.new_empty((R, V) if need_alloc else (0,)), torch.empty_like(g_bw), g_bw.new_empty((R,))
+
+
+class _MapperCarries(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, decays: tuple):
+        lead = torch.broadcast_shapes(alloc.shape[:-1], bw_x.shape[:-1], cap.shape)
+        V = bw_x.shape[-1]
+        if alloc.shape[-1] != V:
+            raise ValueError(f"mapper_carries: alloc {tuple(alloc.shape)} and bw_x {tuple(bw_x.shape)} differ in V")
+
+        def rows(t: torch.Tensor, *v: int) -> torch.Tensor:  # one row, or one a broadcast row
+            if t.shape[:t.ndim - len(v)].numel() == 1:
+                return t.reshape(1, *v)
+            return t.expand(*lead, *v).reshape(lead.numel(), *v)
+
+        occ, bw, code = mapper_carries_op(rows(alloc, V), rows(bw_x, V), rows(cap), *decays)
+        ctx.save_for_backward(code)
+        ctx.decays, ctx.shapes, ctx.lead = decays, (alloc.shape, bw_x.shape, cap.shape), lead
+        return occ.view(*lead, V), bw.view(*lead, V)
+
+    @staticmethod
+    def backward(ctx, g_occ: torch.Tensor, g_bw: torch.Tensor):
+        (code,) = ctx.saved_tensors
+        R, V = code.shape
+        need = ctx.needs_input_grad
+        ga, gb, gc = mapper_carries_backward_op(g_occ.reshape(R, V), g_bw.reshape(R, V), code, *ctx.decays,
+                                                need[0])
+        full = (*ctx.lead, V)
+        return (ga.view(full).sum_to_size(ctx.shapes[0]) if need[0] else None,
+                gb.view(full).sum_to_size(ctx.shapes[1]) if need[1] else None,
+                gc.view(ctx.lead).sum_to_size(ctx.shapes[2]) if need[2] else None, None)
+
+
+def mapper_carries(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, occ_decay: float,
+                   bw_decay: float, bw_gain: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable (occ_prev, bw_prev): the states before each vertex of
+    ``s' = min(occ_decay*s + alloc, cap)`` and ``t' = bw_decay*t + bw_gain*bw_x``
+    along the last axis, one launch forward and one backward.  ``alloc`` and
+    ``bw_x`` [..., V] and ``cap`` [...] broadcast; both outputs have the
+    broadcast shape, and each gradient is summed back to its input's shape."""
+    return _MapperCarries.apply(alloc, bw_x, cap, (float(occ_decay), float(bw_decay), float(bw_gain)))
 
 
 # --------------------------------------------------------------------------- #

@@ -40,6 +40,125 @@ def test_affine_scan_kernel_matches_plain(cuda, R, V):
     torch.testing.assert_close(b.grad, want_g, rtol=1e-5, atol=1e-6 * float(cot.abs().max()))
 
 
+# K1's fused kernels: the mapper's two carries forward (values and clamp
+# codes) and their closed-form backward, at the affine scan's shapes and two
+# rows of several tiles (1,024 elements a tile), rows clamping often
+_CARRY_SHAPES = [(1, 1), (3, 33), (16, 707), (5, 1024), (11, 256), (1, 32), (1, 1024), (2, 4096), (3, 2500)]
+
+
+def _carries_decays():
+    from repro_torch.core import mapper
+
+    return mapper._OCC_DECAY, mapper._BW_DECAY, mapper._BW_GAIN
+
+
+def _carries_draw(cuda, R, V, per_row_cap, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=cuda)  # noqa: E731
+    cap = 1.0 + 2.0 * rand(R if per_row_cap else ())
+    alloc = cap.reshape(-1, 1) * (0.2 + 0.7 * rand(R, V))  # a steady state of 2*alloc: clamps often
+    return alloc, 2.0 * rand(R, V), cap, rand(R, V) - 0.5, rand(R, V) - 0.5
+
+
+def _carry_names():
+    return ("mapper_carries", "mapper_carries_backward")
+
+
+@pytest.mark.parametrize("per_row_cap", [False, True], ids=["scalar_cap", "row_cap"])
+@pytest.mark.parametrize("R,V", _CARRY_SHAPES)
+def test_mapper_carries_kernel_matches_plain(cuda, R, V, per_row_cap):
+    from repro_torch.kernels import ref, runtime, sscan
+
+    decays = _carries_decays()
+    alloc, bw_x, cap, w_occ, w_bw = _carries_draw(cuda, R, V, per_row_cap, R * 10007 + V)
+    leaves = [t.clone().requires_grad_(True) for t in (alloc, bw_x, cap)]
+    before = {n: runtime.LAUNCHES[n] for n in _carry_names()}
+    occ, bw = sscan.mapper_carries(*leaves, *decays)
+    (occ * w_occ + bw * w_bw).sum().backward()
+    torch.cuda.synchronize()
+    assert {n: runtime.LAUNCHES[n] - before[n] for n in _carry_names()} == {n: 1 for n in _carry_names()}
+
+    want_occ, want_bw, want_code = ref.mapper_carries_reference(alloc, bw_x, cap, *decays)
+    _, _, code = sscan.mapper_carries_op(alloc, bw_x, cap.reshape(-1), *decays)
+    assert code.dtype == torch.uint8 and torch.equal(code, want_code)
+    if V >= 256:
+        assert 0.05 < float((code == 0).float().mean()) < 0.95  # both sides of the clamp
+    for got, want in ((occ, want_occ), (bw, want_bw)):
+        torch.testing.assert_close(got.detach(), want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    ga, gb, gc = ref.mapper_carries_backward_reference(w_occ, w_bw, want_code, *decays)
+    gc = gc if per_row_cap else gc.sum()
+    for got, want in ((leaves[0].grad, ga), (leaves[1].grad, gb)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    lam_abs = ref.mapper_carries_backward_reference(w_occ.abs(), w_bw.abs(), want_code, *decays)[2].sum()
+    assert leaves[2].grad.shape == cap.shape
+    torch.testing.assert_close(leaves[2].grad, gc, rtol=1e-5, atol=1e-6 * float(lam_abs) + 1e-30)
+
+
+def test_mapper_carries_backward_without_alloc(cuda):
+    # the mapper's own case: the graph's allocations take no gradient, so the
+    # kernel writes no grad_alloc
+    from repro_torch.kernels import ref, runtime, sscan
+
+    decays = _carries_decays()
+    alloc, bw_x, cap, w_occ, w_bw = _carries_draw(cuda, 5, 1024, False, 3)
+    bw_l, cap_l = bw_x.clone().requires_grad_(True), cap.clone().requires_grad_(True)
+    before = runtime.LAUNCHES["mapper_carries_backward"]
+    occ, bw = sscan.mapper_carries(alloc, bw_l, cap_l, *decays)
+    (occ * w_occ + bw * w_bw).sum().backward()
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["mapper_carries_backward"] == before + 1
+    _, _, code = ref.mapper_carries_reference(alloc, bw_x, cap, *decays)
+    _, gb, gc = ref.mapper_carries_backward_reference(w_occ, w_bw, code, *decays)
+    torch.testing.assert_close(bw_l.grad, gb, rtol=1e-5, atol=1e-6 * float(gb.abs().max()))
+    torch.testing.assert_close(cap_l.grad, gc.sum(), rtol=1e-5, atol=1e-5 * float(gc.abs().sum()))
+
+
+def test_mapper_carries_ties_on_the_card(cuda):
+    # powers of two: every u = 0.5*s + alloc that meets cap meets it exactly,
+    # in the kernel and in the plain version alike; a tie splits as torch.minimum
+    from repro_torch.kernels import ref, sscan
+
+    decays = _carries_decays()
+    cap = torch.tensor([4.0], device=cuda)
+    alloc = torch.tensor([[4.0, 2.0, 2.0, 1.0, 3.0, 2.0, 0.5, 8.0, 2.0]], device=cuda)
+    bw_x = torch.full_like(alloc, 0.5)
+    _, _, code = sscan.mapper_carries_op(alloc, bw_x, cap, *decays)
+    want = ref.mapper_carries_reference(alloc, bw_x, cap, *decays)
+    assert torch.equal(code, want[2]) and int((code == 1).sum()) == 5
+    leaves = [t.clone().requires_grad_(True) for t in (alloc, bw_x, cap)]
+    occ, _ = sscan.mapper_carries(*leaves, *decays)
+    w = torch.arange(1.0, 10.0, device=cuda)[None]
+    (occ * w).sum().backward()
+    ga, _, gc = ref.mapper_carries_backward_reference(w, torch.zeros_like(w), code, *decays)
+    torch.testing.assert_close(occ.detach(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(leaves[0].grad, ga, rtol=0, atol=0)
+    torch.testing.assert_close(leaves[2].grad, gc, rtol=0, atol=0)
+
+
+def test_mapper_carries_launch_nothing_on_empty_rows_and_raise_on_bad_inputs(cuda):
+    from repro_torch.kernels import runtime, sscan
+
+    decays = _carries_decays()
+    before = dict(runtime.LAUNCHES)
+    occ, bw = sscan.mapper_carries(torch.rand(3, 0, device=cuda), torch.rand(3, 0, device=cuda),
+                                   torch.ones(3, device=cuda), *decays)
+    assert occ.shape == bw.shape == (3, 0)
+    occ, bw = sscan.mapper_carries(torch.rand(0, 5, device=cuda), torch.rand(0, 5, device=cuda),
+                                   torch.ones((), device=cuda), *decays)
+    assert occ.shape == bw.shape == (0, 5)
+    x = torch.rand(3, 8, device=cuda)
+    with pytest.raises(TypeError):
+        sscan.mapper_carries(x.double(), x, torch.ones(3, device=cuda), *decays)
+    with pytest.raises(TypeError):
+        sscan.mapper_carries_backward_op(x, x, x, *decays, True)  # the code must be uint8
+    with pytest.raises(ValueError, match="one device"):
+        sscan.mapper_carries(x.cpu(), x, torch.ones(3, device=cuda), *decays)
+    with pytest.raises(ValueError, match="occ_decay"):
+        sscan.mapper_carries(x, x, torch.ones(3, device=cuda), -0.5, *decays[1:])
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES == before
+
+
 # popsim (K2) is held to its plain version bit for bit: it keeps the plain
 # version's operation order, IEEE '/' and ceilf, and contracts nothing
 def _popsim_exact(got, want):
