@@ -38,16 +38,34 @@ Phases (each raises on failure, so any failure exits non-zero):
    e. evaluate a population of 65,536 designs on qwen2.5-32b:prefill_32k and
       hold the default design's cycles against the simulator's (the phase's
       wall time printed);
+5. the DSE path, with the launch counts set to 0 just before and read just
+   after (K1 forward and backward must run on it):
+   a. the 7 library archs of the .dhd language compiled on the card, each
+      serialized, re-parsed and re-serialized byte-identically;
+   b. DSim cycles on base, datacenter and edge for the 11 workloads of
+      tests/test_refsim_accuracy.py against the float64 cycle walker
+      (``refsim.reference_simulate``) at that file's tolerances;
+   c. population_chunk against sequential optimize(fused=True) runs (4
+      jittered members, one-hot edp; one mixed member with a binding budget),
+      rtol 1e-5;
+   d. benchmarks/bench_pareto.py's full configuration (32 members, 24 steps,
+      3 workloads, 5 seeds) through ``pareto_dse`` with the draws of
+      tests/data/torch_pareto_ref.npz (made by tools/make_torch_pareto_ref.py
+      from the reference package) against that fixture at rtol 1e-3, every
+      winner's .dhd re-parsed bit for bit, and the descent's member-epochs/s;
+   e. 1,024 members on the LM stack [5, 1024], 8 epochs: member-epochs/s,
+      peak device memory, K1's launches, every member finite or frozen, and
+      member 0 against sequential optimize(objective="mixed") at rtol 1e-4;
    then the bare affine scan's own path: the package's public ``affine_scan``,
    forward and backward, on the LM stack's bandwidth input, held against the
    fused kernel's bw_prev;
-5. the serving path, with the launch counts set to 0 just before and read
+6. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
    each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
    (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each); zamba2's
    attention must go through the bf16 tensor-core kernel, 6 launches a request;
-6. the agreement path, with the launch counts set to 0 just before and read
+7. the agreement path, with the launch counts set to 0 just before and read
    just after: the fixture tests/data/torch_ssm_ref.npz (made by
    tools/make_torch_ssm_ref.py from the JAX models on the same numpy weights)
    against this package on the card in float32 (prefill logits and 8
@@ -389,10 +407,15 @@ def phase_kernels(device) -> dict:
     return {"affine_scan": k1, **carries_records(device), "popsim": k2}
 
 
-# shapes the main path gives K1's fused kernels: [1, bucket] for each
+# shapes the main paths give K1's fused kernels: [1, bucket] for each
 # simulate (qwen's 1024 the largest), [5, 1024] for the LM-stack DOpt,
-# [11, 256] for the classic DOpt; the records are timed at [5, 1024]
-CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256))
+# [11, 256] for the classic DOpt (one design over R workloads: one cap), and
+# the DSE path's populations, P·W rows of one design each: [96, 109] for the
+# bench configuration (32 members x 3 workloads, bert_base's 109 vertices)
+# and [5120, 1024] for 1,024 members on the LM stack; the records are timed
+# at [5, 1024], and at every shape in ms_by_shape
+DSE_CARRY_SHAPES = ((96, 109), (5120, 1024))
+CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256), *DSE_CARRY_SHAPES)
 
 
 def carries_records(device) -> dict:
@@ -416,7 +439,7 @@ def carries_records(device) -> dict:
         return cap[:, None] * (0.2 + 0.7 * rand(R, V)), 2.0 * rand(R, V), cap
 
     err = {"forward": 0.0, "backward": 0.0}
-    shapes = [(1, 1), (3, 33), (16, 707), (512, 4096), (3, 2500), *CARRY_SHAPES]
+    shapes = [(1, 1), (3, 33), (16, 707), (512, 4096), (3, 2500), *CARRY_SHAPES]  # a cap a row
     shapes += [(1, 1 << k) for k in range(5, 11)]
     for R, V in shapes:
         alloc, bw_x, cap = draw(R, V)
@@ -445,10 +468,11 @@ def carries_records(device) -> dict:
     rec = {}
     for name, kernel in (("mapper_carries", "carries_kernel<true>"),
                          ("mapper_carries_backward", "carries_backward_kernel")):
-        by_shape = {}
+        by_shape, bound_by_shape = {}, {}
         for R, V in CARRY_SHAPES:
             alloc, bw_x, cap = draw(R, V)
-            cap1 = cap[:1]  # the mapper's one design over R workloads
+            # one design over R workloads (one cap), or a population's one design a row
+            cap1 = cap if (R, V) in DSE_CARRY_SHAPES else cap[:1]
             occ, bw, code = sscan.mapper_carries_op(alloc, bw_x, cap1, *decays)
             g_occ, g_bw = rand(R, V) - 0.5, rand(R, V) - 0.5
             if name == "mapper_carries":
@@ -456,7 +480,7 @@ def carries_records(device) -> dict:
                 plain = lambda: ref.mapper_carries_reference(alloc, bw_x, cap1, *decays)  # noqa: E731
                 # alloc, bw_x, cap read; occ_prev, bw_prev (float32) and the code (uint8) written;
                 # per vertex: occupancy 0.5*s, + alloc, min, the tie test; bandwidth 0.2*x, 0.8*t, +
-                size, ops = (4 * R * V * 2 + 4) + (4 * R * V * 2 + R * V), 7 * R * V
+                size, ops = (4 * R * V * 2 + 4 * cap1.numel()) + (4 * R * V * 2 + R * V), 7 * R * V
             else:
                 kern = lambda: sscan.mapper_carries_backward_op(g_occ, g_bw, code, *decays, False)  # noqa: E731
                 plain = lambda: ref.mapper_carries_backward_reference(g_occ, g_bw, code, *decays)  # noqa: E731
@@ -465,11 +489,12 @@ def carries_records(device) -> dict:
                 size, ops = (4 * R * V * 2 + R * V) + (4 * R * V + 4 * R), 9 * R * V
             ms, method = device_ms(kern, 100, kernel)
             by_shape[f"{R}x{V}"] = ms
+            bound_by_shape[f"{R}x{V}"] = max(size / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
             if (R, V) == (len(LM), 1024):
                 r = dict(bytes=size, ops=ops, ms=ms, ms_method=method, host_ms=median_ms(kern, device),
                          plain_host_ms=median_ms(plain, device), plain_ms=device_ms(plain, 20)[0],
                          max_abs_err=err["forward" if name == "mapper_carries" else "backward"])
-        r["ms_by_shape"] = by_shape
+        r["ms_by_shape"], r["bound_ms_by_shape"] = by_shape, bound_by_shape
         rec[name] = r
     return rec
 
@@ -985,13 +1010,14 @@ def phase_population(device) -> None:
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
 
 
-def phase_profile(device) -> None:
-    """Where the time goes: one warm DOpt step on the LM stack and one
-    simulate of qwen2.5-32b:prefill_32k under torch.profiler (each kernel
-    alone is timed in phase kernels).  Prints wall time, summed device time,
-    the device's idle share and the kernels with most device time.  Runs
-    after the main path's launch counts are read, so its launches count
-    nowhere."""
+def phase_profile(device, more: dict) -> None:
+    """Where the time goes: one warm DOpt step on the LM stack, one simulate
+    of qwen2.5-32b:prefill_32k and the calls in ``more`` (name -> callable;
+    the DSE path leaves one epoch of its 1,024 members there) under
+    torch.profiler (each kernel alone is timed in phase kernels).  Prints
+    wall time, summed device time, the device's idle share and the kernels
+    with most device time.  Runs after the main path's launch counts are
+    read, so its launches count nowhere."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1004,6 +1030,7 @@ def phase_profile(device) -> None:
     work = {
         "dopt_step_lm_stack": lambda: optimize(gs, objective="edp", lr=0.05, steps=1, device=device),
         "simulate_qwen": lambda: simulate_stacked(tech, arch, q).cycles.sum().item(),
+        **more,
     }
     for name, fn in work.items():
         fn()
@@ -1025,7 +1052,310 @@ def phase_profile(device) -> None:
               + "; ".join(f"{k[:48]} {t:.4f} ms x{c}" for t, c, k in top))
 
 
+# --------------------------------------------------------------------------- #
+# the DSE path: .dhd library -> walker accuracy -> population = sequential ->
+# the users' Pareto DSE against the reference's fixture -> 1,024 members
+# --------------------------------------------------------------------------- #
+
+PARETO_FIXTURE = ROOT / "tests" / "data" / "torch_pareto_ref.npz"
+PARETO_RTOL = 1e-3  # the tolerance phase_optimize holds DOpt's history to
+# tests/test_refsim_accuracy.py's matrix: workload -> DSim-vs-walker relative tolerance
+REFSIM_MATRIX = {"resnet50": 0.05, "lstm": 0.08, "bert_base": 0.03, "dlrm": 0.06, "gcn": 0.08, "graphsage": 0.09,
+                 "stencil2d": 0.08, "merge_sort": 0.08, "bfs_graph": 0.06, "granite-3-8b:train_4k": 0.02,
+                 "qwen2.5-32b:prefill_32k": 0.02}
+REFSIM_ARCHS = ("base", "datacenter", "edge")
+SCALE_P, SCALE_EPOCHS, SCALE_LR, SCALE_PENALTY = 1024, 8, 0.1, 2.0
+
+
+def graph(name: str, device):
+    """A workload by its name in REFSIM_MATRIX (``arch:shape`` for an LM cell)."""
+    from repro_torch.workloads import get_workload, lm_cell
+
+    return lm_cell(*name.split(":"), device=device) if ":" in name else get_workload(name, device=device)
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a.leaves(), b.leaves()))
+
+
+def phase_dse_library(device) -> None:
+    """Every library arch on the card; each serializes, re-parses and
+    re-serializes byte-identically, and re-parses to the loaded design bit for bit."""
+    from repro_torch.core import dhdl
+
+    names = dhdl.library_archs()
+    for name in names:
+        ca = dhdl.load_arch(name, device)
+        text = dhdl.serialize_arch(ca)
+        again = dhdl.parse_arch(text, env={}, device=device)
+        check(dhdl.serialize_arch(again) == text, f"{name}: serialize -> parse -> serialize is not byte-identical")
+        check(again.spec == ca.spec and trees_equal(again.tech, ca.tech) and trees_equal(again.arch, ca.arch),
+              f"{name}: the re-parsed design differs from the loaded one")
+    print(f"  dhd library: {len(names)} archs ({', '.join(names)}) compiled on the card; each serializes, "
+          "re-parses and re-serializes byte-identically, and re-parses to the loaded design bit for bit")
+
+
+def phase_dse_refsim(device) -> None:
+    """DSim on the card against the float64 cycle walker, at
+    tests/test_refsim_accuracy.py's per-workload tolerances."""
+    from repro_torch.core import dhdl
+    from repro_torch.core.refsim import reference_simulate
+
+    graphs = {name: graph(name, device) for name in REFSIM_MATRIX}
+    for arch in REFSIM_ARCHS:
+        ca = dhdl.load_arch(arch, device)
+        chw = ca.specialize()
+        errs = []
+        for name, tol in REFSIM_MATRIX.items():
+            cyc = float(ca.simulate(graphs[name]).cycles)
+            want = reference_simulate(chw, graphs[name])["cycles"]
+            rel = abs(cyc - want) / max(want, 1.0)
+            check(rel <= tol, f"{name} on {arch}: DSim {cyc:.6g} vs walker {want:.6g} (rel {rel:.4f} > {tol})")
+            errs.append(f"{name} {rel:.4f}/{tol}")
+        print(f"  walker accuracy on {arch}: DSim cycles vs the walker's, rel err/tol: " + ", ".join(errs))
+
+
+def phase_dse_equivalence(device) -> None:
+    """The population chunk is P sequential optimize(fused=True) runs: 4
+    jittered members, one-hot edp, 4 epochs (rtol 1e-5, as the reference's
+    tests/test_popsim.py holds its own); then one member with a mixed
+    objective, a binding area budget and a constant penalty weight."""
+    import numpy as np
+
+    from repro_torch.core import ArchParams, Graph, TechParams, optimize, popsim
+    from repro_torch.core.dopt import from_log
+    from repro_torch.workloads import get_workload
+
+    gl = [get_workload("lstm", device=device), get_workload("merge_sort", device=device)]
+    n, steps = 4, 4
+    tech, arch = popsim.init_population(7, n, sigma=0.2, device=device)
+    onehot = np.zeros((n, 4), np.float32)
+    onehot[:, 3] = 1.0  # edp
+    state, m = popsim.population_chunk(popsim.init_population_state(tech, arch),
+                                       (onehot, np.full(n, np.inf), np.full(n, np.inf)), Graph.stack(gl), 0.05,
+                                       np.ones(steps, np.float32))
+    pt, pa = from_log(state[0]), from_log(state[1])
+    worst = 0.0
+    for i in range(n):
+        res = optimize(gl, tech=tech.map(lambda x: x[i]), arch=arch.map(lambda x: x[i]), objective="edp",
+                       steps=steps, lr=0.05, fused=True, device=device)
+        ok, err = rel_close(m[:, i, 0], res.history["objective"], 1e-5)
+        check(ok, f"population member {i}: objective history off sequential optimize by rel {err:.3g}")
+        worst = max(worst, err)
+        for got, want in zip(pt.map(lambda x: x[i]).leaves() + pa.map(lambda x: x[i]).leaves(),
+                             res.tech.leaves() + res.arch.leaves()):
+            ok, err = rel_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
+            check(ok, f"population member {i}: final parameters off sequential optimize by rel {err:.3g}")
+            worst = max(worst, err)
+    print(f"  population = sequential: {n} jittered members x {steps} epochs (edp) within rel {worst:.3g} of "
+          "optimize(fused=True), history and final parameters (rtol 1e-5)")
+    lstm = [gl[0]]
+    w = np.asarray([[0.5, 0.3, 0.2, 0.0]], np.float32)
+    one = [t.map(lambda x: x[None]) for t in (TechParams.default(device), ArchParams.default(device))]
+    _, m = popsim.population_chunk(popsim.init_population_state(*one), (w, [300.0], [np.inf]), Graph.stack(lstm),
+                                   0.08, np.full(3, 2.0, np.float32))
+    res = optimize(lstm, objective="mixed", objective_weights=w[0], area_budget=300.0, penalty_weight=2.0, steps=3,
+                   lr=0.08, fused=True, device=device)
+    ok, err = rel_close(m[:, 0, 0], res.history["objective"], 1e-5)
+    check(ok, f"mixed population member: history off optimize(objective='mixed') by rel {err:.3g}")
+    print(f"  population = sequential, mixed [0.5, 0.3, 0.2, 0], area budget 300, penalty 2.0, 3 epochs: within "
+          f"rel {err:.3g} (rtol 1e-5)")
+
+
+def fixture_pareto_dse(ref: dict, device):
+    """The port's pareto_dse at the fixture's configuration (bench_pareto.py's
+    full run), with the fixture's draws, budgets and hypervolume box."""
+    from repro_torch.core import popsim
+    from repro_torch.workloads import get_workload
+
+    noise = tuple({k.split("/")[2]: v for k, v in ref.items() if k.startswith(f"noise/{t}/")} for t in ("tech", "arch"))
+    return popsim.pareto_dse(
+        [get_workload(str(n), device=device) for n in ref["workloads"]],
+        seeds=tuple(str(s) for s in ref["seeds"]), population=int(ref["population"]), steps=int(ref["steps"]),
+        lr=float(ref["lr"]), metrics=tuple(str(m) for m in ref["metrics"]),
+        area_budget=float(ref["area_budget"]), power_budget=float(ref["power_budget"]),
+        penalty_weight=tuple(float(p) for p in ref["penalty"]), hv_box=(ref["hv_lo"], ref["hv_ref"]),
+        noise=noise, mix_draws=ref["mix_draws"], hv_samples=ref["hv_samples"], device=device)
+
+
+def _rel(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.where(np.isfinite(got), np.abs(got - want) / np.maximum(np.abs(want), 1e-30), np.inf)
+
+
+def _front_margin(pts, i: int, dominated: bool) -> float:
+    """How far (relative, per coordinate) member ``i`` of ``pts`` [P, M] is
+    from the other side of its domination status: when dominated, the least
+    move that escapes every member dominating it; when not, the least move
+    that lets some member dominate it."""
+    import numpy as np
+
+    p = np.asarray(pts, np.float64)
+    scale = np.maximum(np.abs(p[i]), 1e-30)
+    others = [j for j in range(len(p)) if j != i]
+    if dominated:
+        doms = [j for j in others if np.all(p[j] <= p[i]) and np.any(p[j] < p[i])]
+        return max(float(np.min((p[i] - p[j]) / scale)) for j in doms)
+    return min(float(np.max(np.maximum(p[j] - p[i], 0.0) / scale)) for j in others)
+
+
+def hold_pareto(res, ref: dict) -> dict:
+    """Hold a port pareto_dse result against the reference's fixture at
+    PARETO_RTOL.  Members whose own spread in the reference (its history or log
+    metrics moving under exact reformulations of its arithmetic, stored in the
+    fixture) exceeds PARETO_RTOL are not determined by the reference to that
+    tolerance: they are held at the first epoch (before any step), finite
+    after it, and where they stand on the front.  Returns what was measured."""
+    import numpy as np
+
+    from repro_torch.core.dsim import PARETO_METRICS
+    from repro_torch.core.pareto import non_dominated_mask
+
+    spread = np.maximum(ref["spread_history"], ref["spread_log_metrics"])
+    held = spread <= PARETO_RTOL
+    free = np.nonzero(~held)[0].tolist()
+    h, lm = _rel(res.history, ref["history"]), _rel(res.log_metrics, ref["log_metrics"])
+    out = {"held": int(held.sum()), "free": free, "history": float(h[:, held].max()),
+           "log_metrics": float(lm[held].max()), "first_epoch": float(h[0].max())}
+    check(out["history"] <= PARETO_RTOL, f"pareto history off the fixture by rel {out['history']:.3g} "
+                                         f"(member {int(h.max(axis=(0, 2))[held].argmax())} of the held)")
+    check(out["log_metrics"] <= PARETO_RTOL, f"pareto log metrics off the fixture by rel {out['log_metrics']:.3g}")
+    check(out["first_epoch"] <= PARETO_RTOL, f"pareto first epoch off the fixture by rel {out['first_epoch']:.3g}")
+    check(bool(np.isfinite(res.history).all() and np.isfinite(res.log_metrics).all()), "non-finite pareto result")
+    check(np.array_equal(res.feasible[held], ref["feasible"][held]), "feasible members differ from the fixture's")
+    for i in free:
+        print(f"    member {i}: not determined by the reference at rtol {PARETO_RTOL} (its own spread "
+              f"{spread[i]:.3g}); first epoch within {float(h[0, i].max()):.3g}, history within "
+              f"{float(h[:, i].max()):.3g}, log metrics within {float(lm[i].max()):.3g} of the fixture")
+    # the front the reference gives once the undetermined members stand where the port put them
+    midx = [PARETO_METRICS.index(str(m)) for m in ref["metrics"]]
+    pts = np.asarray(ref["log_metrics"], np.float32).copy()
+    feas = np.asarray(ref["feasible"]).copy()
+    pts[free], feas[free] = res.log_metrics[free], res.feasible[free]
+    want = np.nonzero(non_dominated_mask(pts[:, midx], feas, device="cpu").numpy())[0]
+    port_pts = res.log_metrics[:, midx]
+    for i in sorted(set(want.tolist()) ^ set(res.front.tolist())):
+        margin = _front_margin(port_pts[res.feasible], int(np.searchsorted(np.nonzero(res.feasible)[0], i)),
+                               i not in res.front)
+        check(margin <= PARETO_RTOL, f"front member {i} differs from the fixture's by a margin of {margin:.3g}")
+        print(f"    front member {i} differs: it lies within {margin:.3g} (rel) of the other side of its "
+              f"domination status (held to rtol {PARETO_RTOL})")
+    out["front_equal"] = np.array_equal(res.front, ref["front"])
+    print(f"    front {res.front.tolist()}" + ("" if out["front_equal"] else f" (fixture {ref['front'].tolist()})"))
+    out["hypervolume"] = float(_rel(res.hypervolume, ref["hypervolume"]))
+    check(out["hypervolume"] <= PARETO_RTOL, f"hypervolume {res.hypervolume} vs fixture {float(ref['hypervolume'])} "
+                                             f"(rel {out['hypervolume']:.3g})")
+    return out
+
+
+def phase_dse_bench(device, keep: dict) -> None:
+    """The users' DSE configuration (benchmarks/bench_pareto.py's full run)
+    against the reference's fixture; every winner's .dhd re-parses to its
+    member bit for bit; member-epochs/s of the descent (one epoch of it left
+    in ``keep`` for phase_profile)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Graph, dhdl, popsim
+
+    ref = dict(np.load(PARETO_FIXTURE))
+    t0 = time.perf_counter()
+    res = fixture_pareto_dse(ref, device)
+    wall = time.perf_counter() - t0
+    out = hold_pareto(res, ref)
+    for w in res.winners:
+        i = w["index"]
+        ca = dhdl.parse_arch(w["dhd"], device=device)
+        check(ca.spec == res.spec and trees_equal(ca.tech, res.tech.map(lambda x: x[i]))
+              and trees_equal(ca.arch, res.arch.map(lambda x: x[i])) and dhdl.serialize_arch(ca) == w["dhd"],
+              f"winner {i}: its .dhd does not re-parse to its member bit for bit")
+    P, steps = int(ref["population"]), int(ref["steps"])
+    print(f"  pareto_dse, bench configuration (P={P}, {steps} steps, {len(ref['workloads'])} workloads, "
+          f"{len(ref['seeds'])} seeds): {out['held']} members held within rel {out['history']:.3g} (history) and "
+          f"{out['log_metrics']:.3g} (log metrics) of the fixture (rtol {PARETO_RTOL}); first epoch within "
+          f"{out['first_epoch']:.3g}; front of {res.front.size}, hypervolume {res.hypervolume:.6g} within rel "
+          f"{out['hypervolume']:.3g}; {len(res.winners)} winners re-parse bit for bit; wall {wall:.3f} s")
+    # the descent alone, warm: one chunk of every epoch, one host copy
+    (tech, arch), spec, _ = popsim.seed_population(P, tuple(str(s) for s in ref["seeds"]), key=0, device=device)
+    mixes = (popsim.sample_objective_mixes(P, device=device), np.full(P, float(ref["area_budget"])),
+             np.full(P, float(ref["power_budget"])))
+    gs = Graph.stack([graph(str(n), device) for n in ref["workloads"]])
+    sched = np.geomspace(*(float(p) for p in ref["penalty"]), steps).astype(np.float32)
+    state = popsim.init_population_state(tech, arch)
+    run = lambda: popsim.population_chunk(state, mixes, gs, float(ref["lr"]), sched, spec=spec)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    dt = time.perf_counter() - t0
+    print(f"  pareto descent, bench configuration: {P * steps / dt:.1f} member-epochs/s ({dt * 1e3:.3f} ms for "
+          f"{steps} epochs of {P} members, warm, one host copy)")
+    keep["dse_epoch_bench_P32"] = lambda: popsim.population_chunk(state, mixes, gs, float(ref["lr"]), sched[:1],
+                                                                  spec=spec)
+
+
+def phase_dse_scale(device, keep: dict) -> None:
+    """1,024 members seeded from the 5 library archs on the LM stack [5, 1024],
+    8 epochs at a constant penalty weight; budgets from the seeds as
+    bench_pareto.py's ``_seed_budgets`` takes them (the worst seed's area and power)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Graph, optimize, popsim
+    from repro_torch.kernels import runtime
+    from repro_torch.workloads import lm_cell
+
+    seeds = ("base", "edge", "mobile", "datacenter", "hbm_class")
+    gs = Graph.stack([lm_cell(a, s, device=device).pad_to(1024) for a, s in LM])
+    P = SCALE_P
+    (tech, arch), spec, _ = popsim.seed_population(P, seeds, key=0, device=device)
+    w = popsim.sample_objective_mixes(P, device=device)
+    _, area, power = popsim.population_log_metrics(tech.map(lambda x: x[:len(seeds)]),
+                                                   arch.map(lambda x: x[:len(seeds)]), gs, spec)
+    area_b, power_b = float(area.max()), float(power.max())
+    mixes = (w, np.full(P, area_b), np.full(P, power_b))
+    sched = np.full(SCALE_EPOCHS, SCALE_PENALTY, np.float32)
+    start = popsim.init_population_state(tech, arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1 = {k: runtime.LAUNCHES[k] for k in ("mapper_carries", "mapper_carries_backward")}
+    t0 = time.perf_counter()
+    state, m = popsim.population_chunk(start, mixes, gs, SCALE_LR, sched, spec=spec)
+    dt = time.perf_counter() - t0  # population_chunk ends in its one host copy
+    k1 = {k: runtime.LAUNCHES[k] - n for k, n in k1.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = popsim.population_chunk(start, mixes, gs, SCALE_LR, sched, spec=spec)[1]
+    warm = time.perf_counter() - t0
+    check(np.array_equal(again, m), f"P={P}: a second run from the same state differs")
+    finite = all(bool(torch.isfinite(x).all()) for x in state[0].leaves() + state[1].leaves())
+    check(finite, f"P={P}: a member's parameters are not finite (a diverging member freezes at its last finite "
+                  "state)")
+    rows_bad = int((~np.isfinite(m).all(axis=(0, 2))).sum())
+    check(m.shape == (SCALE_EPOCHS, P, 5), f"P={P} history {m.shape}")
+    check(k1 == {"mapper_carries": SCALE_EPOCHS, "mapper_carries_backward": SCALE_EPOCHS},
+          f"P={P}: K1 launches {k1}, want one each way an epoch")
+    res = optimize(gs, tech=tech.map(lambda x: x[0]), arch=arch.map(lambda x: x[0]), spec=spec, objective="mixed",
+                   objective_weights=w[0].cpu().numpy(), area_budget=area_b, power_budget=power_b,
+                   penalty_weight=SCALE_PENALTY, steps=SCALE_EPOCHS, lr=SCALE_LR, fused=True, device=device)
+    ok, err = rel_close(m[:, 0, 0], res.history["objective"], 1e-4)
+    check(ok, f"P={P} member 0 off sequential optimize(objective='mixed') by rel {err:.3g}")
+    print(f"  pareto descent at scale: P={P} on the LM stack [5,1024], {SCALE_EPOCHS} epochs: "
+          f"{P * SCALE_EPOCHS / warm:.1f} member-epochs/s warm ({warm * 1e3:.3f} ms; first call "
+          f"{P * SCALE_EPOCHS / dt:.1f}, {dt * 1e3:.3f} ms); peak device memory {peak / 2**30:.3f} GiB; K1 launches "
+          f"{k1} ([{P * len(LM)}, 1024] rows each); every member's parameters finite, {rows_bad} members with a "
+          f"non-finite history row (frozen); member 0 within rel {err:.3g} of sequential optimize (rtol 1e-4); "
+          f"budgets area {area_b:.6g} mm^2, power {power_b:.6g} W")
+    keep["dse_epoch_P1024_lm_stack"] = lambda: popsim.population_chunk(state, mixes, gs, SCALE_LR, sched[:1],
+                                                                       spec=spec)
+
+
 SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
+DSE_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
 AGREE_KERNELS = ("flash_attention",)  # float32 attention
@@ -1081,6 +1411,11 @@ def main() -> int:
     launches = drive("simulator", [lambda: phase_simulate(device), lambda: phase_optimize(device),
                                    lambda: phase_no_streaming(device), lambda: phase_population(device)],
                      SIM_KERNELS)
+    dse = {}
+    for k, n in drive("dse", [lambda: phase_dse_library(device), lambda: phase_dse_refsim(device),
+                              lambda: phase_dse_equivalence(device), lambda: phase_dse_bench(device, dse),
+                              lambda: phase_dse_scale(device, dse)], DSE_KERNELS).items():
+        launches[k] += n  # the simulator path's and the DSE path's launches of K1
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
     zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers
@@ -1091,7 +1426,7 @@ def main() -> int:
     print("agreement with the reference package (fixture), float32:")
     launches.update(drive("agreement", [lambda: phase_agree(device)], AGREE_KERNELS))
     print("where the time goes:")
-    phase_profile(device)
+    phase_profile(device, dse)
 
     kernels = []
     for name, r in rec.items():
@@ -1105,7 +1440,7 @@ def main() -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bound, bound_by=by, bound_terms_ms=terms, library_ms=r.get("library_ms"),
         ))
-        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape"):
+        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape", "bound_ms_by_shape"):
             if key in r:
                 kernels[-1][key] = r[key]
         host = f", host path {r['host_ms']:.6f} ms per call" if "host_ms" in r else ""
@@ -1115,7 +1450,8 @@ def main() -> int:
                       if "ms_by_kernel" in r else "")
         by_prompt += ("; by P " + ", ".join(f"{P}: {ms:.6f}" for P, ms in r["ms_by_P"].items())
                       if "ms_by_P" in r else "")
-        by_prompt += ("; by shape " + ", ".join(f"{k}: {ms:.6f}" for k, ms in r["ms_by_shape"].items())
+        by_prompt += ("; by shape " + ", ".join(f"{k}: {ms:.6f} (bound {r['bound_ms_by_shape'][k]:.6f})"
+                                                for k, ms in r["ms_by_shape"].items())
                       if "ms_by_shape" in r else "")
         library = f"; library {r['library_ms']:.6f} ms" if r.get("library_ms") is not None else ""
         print(f"  {name}: device {r['ms']:.6f} ms ({r['ms_method']}){host}{by_prompt}; plain device "

@@ -1,5 +1,5 @@
-"""DRAGON in PyTorch: DGen, DSim, DOpt and population evaluation, with
-hand-written CUDA kernels for Hopper.
+"""DRAGON in PyTorch: DGen, DSim, DOpt, the .dhd language and population
+Pareto DSE, with hand-written CUDA kernels for Hopper.
 
     from repro_torch import TechParams, ArchParams, get_workload, simulate
 
@@ -31,6 +31,11 @@ _EXPORTS = {
     "mixed_log_objective": "repro_torch.core.dsim",
     "optimize": "repro_torch.core.dopt",
     "OptResult": "repro_torch.core.dopt",
+    "derive_tech_targets": "repro_torch.core.dopt",
+    "pareto_dse": "repro_torch.core.popsim",
+    "load_arch": "repro_torch.core.dhdl",
+    "parse_arch": "repro_torch.core.dhdl",
+    "serialize_arch": "repro_torch.core.dhdl",
     "get_workload": "repro_torch.workloads",
     "lm_cell": "repro_torch.workloads",
     "WORKLOAD_FAMILIES": "repro_torch.workloads",

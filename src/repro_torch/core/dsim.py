@@ -8,7 +8,10 @@ simulate(): (TechParams, ArchParams, Graph) -> PerfEstimate
   Power   = Energy / Runtime                           (paper eq. 3)
 
 Fully differentiable w.r.t. both parameter sets.  A stacked graph
-([W, V, ...]) gives estimates with a leading [W] axis.
+([W, V, ...]) gives estimates with a leading [W] axis; parameters with a
+leading member axis shaped [P, 1] against it give [P, W] estimates, and the
+multi-objective layer below reduces over the workload axis (the last) only,
+so a population's metrics are [P, 4] and its objective values [P].
 """
 from __future__ import annotations
 
@@ -146,11 +149,11 @@ def stacked_log_objective(
     mcfg: MapperCfg = MapperCfg(),
     type_weights: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, PerfEstimate]:
-    """Mean log objective across a stacked workload set (+ the batched
-    estimates).  Log-objective keeps gradients scale-free across
-    heterogeneous workloads."""
+    """Mean log objective across a stacked workload set (the last axis; [P]
+    values for a population) + the batched estimates.  Log-objective keeps
+    gradients scale-free across heterogeneous workloads."""
     perfs = simulate_stacked(tech, arch, gs, spec, mcfg, type_weights)
-    return torch.mean(torch.log(objective_value(perfs, objective, area_constraint))), perfs
+    return torch.mean(torch.log(objective_value(perfs, objective, area_constraint)), -1), perfs
 
 
 # --------------------------------------------------------------------------- #
@@ -168,15 +171,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def stacked_log_metrics(perfs: PerfEstimate) -> torch.Tensor:
-    """[4] log-metric vector of a batched estimate, in PARETO_METRICS order:
-    each entry is the mean log metric across the stacked workload axis."""
+    """[..., 4] log-metric vectors of a batched estimate, in PARETO_METRICS
+    order: each entry is the mean log metric across the stacked workload axis
+    (the last; a [W] estimate gives [4], a population's [P, W] gives [P, 4])."""
     return torch.stack(
         [
-            torch.mean(torch.log(perfs.runtime)),
-            torch.mean(torch.log(perfs.energy)),
-            torch.mean(torch.log(perfs.area)),
-            torch.mean(torch.log(perfs.edp)),
-        ]
+            torch.mean(torch.log(perfs.runtime), -1),
+            torch.mean(torch.log(perfs.energy), -1),
+            torch.mean(torch.log(perfs.area), -1),
+            torch.mean(torch.log(perfs.edp), -1),
+        ],
+        -1,
     )
 
 
@@ -188,16 +193,16 @@ def budget_penalty(
 ) -> torch.Tensor:
     """Differentiable log-space budget penalty (smooth hinge on violation).
 
-    For each budget B and worst-case metric m over the workload stack, the
-    violation is ``v = log m - log B`` and the penalty is
+    For each budget B and worst-case metric m over the workload stack (the
+    last axis), the violation is ``v = log m - log B`` and the penalty is
     ``softplus(sharpness * v) / sharpness``.  An ``inf`` budget disables a
     budget exactly: the violation is ``-inf``, the penalty and its gradient
-    are exactly zero.  Budgets must be positive.
+    are exactly zero.  Budgets must be positive; a population's are [P].
     """
     area_budget = torch.as_tensor(area_budget, dtype=torch.float32).to(perfs.area.device)
     power_budget = torch.as_tensor(power_budget, dtype=torch.float32).to(perfs.power.device)
-    viol_area = torch.log(torch.amax(perfs.area)) - torch.log(area_budget)
-    viol_power = torch.log(torch.amax(perfs.power)) - torch.log(power_budget)
+    viol_area = torch.log(torch.amax(perfs.area, -1)) - torch.log(area_budget)
+    viol_power = torch.log(torch.amax(perfs.power, -1)) - torch.log(power_budget)
     sp = lambda v: _softplus(sharpness * v) / sharpness  # noqa: E731
     return sp(viol_area) + sp(viol_power)
 
@@ -220,12 +225,13 @@ def mixed_log_objective(
     corresponding single-objective ``stacked_log_objective``).  Budgets are
     worst-case-over-workloads area/power ceilings applied as
     :func:`budget_penalty`, scaled by ``penalty_weight``; ``None``/``inf``
-    disables one.
+    disables one.  For a population (params with a [P, 1] lead), ``weights``
+    are [P, 4], the budgets [P] or scalars, and the value is [P].
     """
     perfs = simulate_stacked(tech, arch, gs, spec, mcfg, type_weights)
     dev = perfs.runtime.device
     w = torch.as_tensor(weights, dtype=torch.float32).to(dev)
-    val = torch.dot(w, stacked_log_metrics(perfs))
+    val = torch.sum(w * stacked_log_metrics(perfs), -1)
     ab = float("inf") if area_budget is None else area_budget
     pb = float("inf") if power_budget is None else power_budget
     return val + penalty_weight * budget_penalty(perfs, ab, pb), perfs

@@ -20,6 +20,8 @@ Unit conventions (kept consistent across dgen/dsim):
 from __future__ import annotations
 
 import dataclasses
+import functools
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,11 +68,15 @@ class TensorTree:
         return self.map(lambda x: x.to(device))
 
     @classmethod
-    def from_numpy(cls, d: dict, device=None):
-        """Build from a dict of numpy arrays keyed by field name (float32)."""
+    def from_numpy(cls, d, device=None):
+        """Build from float32 arrays keyed by field name: a dict, or any
+        object that holds them as attributes (the reference package's tree of
+        the same name).  Leaves keep their shapes, so a [P]-stacked tree
+        converts to a [P]-stacked tree."""
         dev = resolve_device(device)
+        get = d.__getitem__ if isinstance(d, Mapping) else functools.partial(getattr, d)
         return cls(**{
-            f.name: torch.tensor(np.array(d[f.name], np.float32), device=dev)
+            f.name: torch.tensor(np.array(get(f.name), np.float32), device=dev)
             for f in dataclasses.fields(cls)
         })
 
@@ -272,3 +278,44 @@ class ArchSpec:
 def clamp_params(p, lo, hi):
     """Field-wise clip of ``p`` into ``[lo, hi]``."""
     return p.map(lambda x, lo_, hi_: torch.minimum(torch.maximum(x, lo_), hi_), lo, hi)
+
+
+def per_member(x: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``x`` (a scalar, or [P]: one value a member) shaped [P, 1, ...] to
+    broadcast against a leaf [P, ...] by its leading (member) axis."""
+    return x.reshape(x.shape + (1,) * (leaf.ndim - x.ndim))
+
+
+def stack_trees(trees: list):
+    """One tree whose every leaf stacks the given trees' leaves on a new
+    leading (member) axis."""
+    return type(trees[0])(**{f.name: torch.stack([getattr(t, f.name) for t in trees])
+                             for f in dataclasses.fields(trees[0])})
+
+
+def from_reference(obj, device=None):
+    """The port's counterpart of a value of the reference package, found by
+    its type's name: TechParams / ArchParams (any leading axes, so stacked
+    populations too), ArchSpec, CompiledArch and Graph; tuples, lists and
+    dicts of them; arrays (e.g. random draws) become tensors of their dtype.
+    Everything lands on ``device`` (the card unless the caller names another)."""
+    name = type(obj).__name__
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(from_reference(x, device) for x in obj)
+    if isinstance(obj, Mapping):
+        return {k: from_reference(v, device) for k, v in obj.items()}
+    if name in ("TechParams", "ArchParams"):
+        return {"TechParams": TechParams, "ArchParams": ArchParams}[name].from_numpy(obj, device)
+    if name == "ArchSpec":
+        return ArchSpec(**{f.name: tuple(getattr(obj, f.name)) for f in dataclasses.fields(ArchSpec)})
+    if name == "CompiledArch":
+        from repro_torch.core.dhdl import CompiledArch
+
+        return CompiledArch(name=obj.name, spec=from_reference(obj.spec), arch=from_reference(obj.arch, device),
+                            tech=from_reference(obj.tech, device))
+    if name == "Graph":
+        from repro_torch.core.graph import DATA_FIELDS, Graph
+
+        return Graph.from_numpy({f: np.asarray(getattr(obj, f)) for f in DATA_FIELDS}, obj.names, device)
+    return torch.as_tensor(np.array(obj), device=resolve_device(device))
+

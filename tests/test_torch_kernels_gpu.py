@@ -41,9 +41,13 @@ def test_affine_scan_kernel_matches_plain(cuda, R, V):
 
 
 # K1's fused kernels: the mapper's two carries forward (values and clamp
-# codes) and their closed-form backward, at the affine scan's shapes and two
-# rows of several tiles (1,024 elements a tile), rows clamping often
-_CARRY_SHAPES = [(1, 1), (3, 33), (16, 707), (5, 1024), (11, 256), (1, 32), (1, 1024), (2, 4096), (3, 2500)]
+# codes) and their closed-form backward, at the affine scan's shapes, two
+# rows of several tiles (1,024 elements a tile), rows clamping often, and the
+# DSE path's populations, P·W rows: [96, 109]
+# (32 members x 3 workloads at the bench configuration) and [5120, 1024]
+# (1,024 members on the LM stack)
+_CARRY_SHAPES = [(1, 1), (3, 33), (16, 707), (5, 1024), (11, 256), (1, 32), (1, 1024), (2, 4096), (3, 2500),
+                 (96, 109), (5120, 1024)]
 
 
 def _carries_decays():
@@ -603,3 +607,31 @@ def test_empty_inputs_launch_nothing(cuda):
     torch.cuda.synchronize()
     assert out.shape == (0, 8)
     assert runtime.LAUNCHES == before
+
+
+def test_population_chunk_on_the_card_matches_the_cpu(cuda):
+    # the DSE path's population step: 4 members seeded from two library archs,
+    # mixed objectives, a binding area budget, 3 epochs; the mapper runs once
+    # on [P, W, V] and K1 takes its P·W rows, one launch each way an epoch
+    import numpy as np
+
+    from repro_torch.core import Graph, popsim
+    from repro_torch.kernels import runtime
+    from repro_torch.workloads import get_workload
+
+    def run(dev):
+        (tech, arch), spec, _ = popsim.seed_population(4, ("base", "edge"), key=0, device=dev)
+        mixes = (popsim.sample_objective_mixes(4, device=dev), np.full(4, 300.0), np.full(4, np.inf))
+        gs = Graph.stack([get_workload(n, device=dev) for n in ("lstm", "bert_base")])  # V = 109: K1
+        return popsim.population_chunk(popsim.init_population_state(tech, arch), mixes, gs, 0.1,
+                                       np.linspace(0.5, 2.0, 3, dtype=np.float32), spec=spec)
+
+    before = {n: runtime.LAUNCHES[n] for n in _carry_names()}
+    state, hist = run(cuda)
+    assert {n: runtime.LAUNCHES[n] - before[n] for n in _carry_names()} == {n: 3 for n in _carry_names()}
+    want_state, want_hist = run("cpu")
+    np.testing.assert_allclose(hist, want_hist, rtol=1e-5)
+    # the parameters, as the reference's population tests hold them (not their
+    # logs, which lie near 0 for parameters near 1)
+    for got, want in zip(state[0].leaves() + state[1].leaves(), want_state[0].leaves() + want_state[1].leaves()):
+        np.testing.assert_allclose(got.exp().cpu().numpy(), want.exp().numpy(), rtol=1e-5)
