@@ -59,13 +59,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    then the bare affine scan's own path: the package's public ``affine_scan``,
    forward and backward, on the LM stack's bandwidth input, held against the
    fused kernel's bw_prev;
-6. the serving path, with the launch counts set to 0 just before and read
+6. the session path, with the launch counts set to 0 just before and read
+   just after (K1 forward and backward must run on it): the ``Session``
+   façade (``repro_torch.api``) over the same engines, every reply held bit
+   for bit against the engine call on the same stack:
+   a. the 16 workloads of results/bench/sim_speed.json through
+      ``Session("base").simulate`` at their buckets (cycles within rtol 1e-5
+      of ``cycles_dsim``), and ``Session.perf`` against simulate_stacked;
+   b. ``explain`` on the LM stack [5, 1024] against a direct autograd.grad,
+      and ``optimize`` (20 steps) against dopt.optimize;
+   c. ``frontier`` at bench_pareto.py's configuration with the DSE path's
+      draws against pareto_dse;
+   d. the 5 LM cells as 5 simulate_batch and explain_batch queries at
+      request_bucket=8, equal as to_json text alone, together and reversed;
+   e. warm calls (the same workload, another of its bucket, another design
+      point) build nothing (``core.instrument``); the first reply, the warm
+      medians of simulate and explain and simulate_batch's queries/s printed;
+7. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
    each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
    (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each); zamba2's
    attention must go through the bf16 tensor-core kernel, 6 launches a request;
-7. the agreement path, with the launch counts set to 0 just before and read
+8. the agreement path, with the launch counts set to 0 just before and read
    just after: the fixture tests/data/torch_ssm_ref.npz (made by
    tools/make_torch_ssm_ref.py from the JAX models on the same numpy weights)
    against this package on the card in float32 (prefill logits and 8
@@ -81,6 +97,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -412,10 +429,16 @@ def phase_kernels(device) -> dict:
 # [11, 256] for the classic DOpt (one design over R workloads: one cap), and
 # the DSE path's populations, P·W rows of one design each: [96, 109] for the
 # bench configuration (32 members x 3 workloads, bert_base's 109 vertices)
-# and [5120, 1024] for 1,024 members on the LM stack; the records are timed
-# at [5, 1024], and at every shape in ms_by_shape
+# and [5120, 1024] for 1,024 members on the LM stack; the session path's
+# batches, nb·W rows of one design each: [8, 32] and [64, 32] for
+# simulate_batch and preheat on (1, 32), [8, 1024] for the LM cells at
+# request_bucket=8, and [96, 128] for frontier, which pads the bench stack to
+# its bucket; the records are timed at [5, 1024], and at every shape in
+# ms_by_shape
 DSE_CARRY_SHAPES = ((96, 109), (5120, 1024))
-CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256), *DSE_CARRY_SHAPES)
+SESSION_CARRY_SHAPES = ((8, 32), (64, 32), (8, 1024), (96, 128))
+ROW_CAP_SHAPES = DSE_CARRY_SHAPES + SESSION_CARRY_SHAPES  # a design, so a cap, a row
+CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256), *ROW_CAP_SHAPES)
 
 
 def carries_records(device) -> dict:
@@ -472,7 +495,7 @@ def carries_records(device) -> dict:
         for R, V in CARRY_SHAPES:
             alloc, bw_x, cap = draw(R, V)
             # one design over R workloads (one cap), or a population's one design a row
-            cap1 = cap if (R, V) in DSE_CARRY_SHAPES else cap[:1]
+            cap1 = cap if (R, V) in ROW_CAP_SHAPES else cap[:1]
             occ, bw, code = sscan.mapper_carries_op(alloc, bw_x, cap1, *decays)
             g_occ, g_bw = rand(R, V) - 0.5, rand(R, V) - 0.5
             if name == "mapper_carries":
@@ -1013,7 +1036,8 @@ def phase_population(device) -> None:
 def phase_profile(device, more: dict) -> None:
     """Where the time goes: one warm DOpt step on the LM stack, one simulate
     of qwen2.5-32b:prefill_32k and the calls in ``more`` (name -> callable;
-    the DSE path leaves one epoch of its 1,024 members there) under
+    the DSE path leaves one epoch of its 1,024 members there, the session
+    path one warm ``Session.simulate``) under
     torch.profiler (each kernel alone is timed in phase kernels).  Prints
     wall time, summed device time, the device's idle share and the kernels
     with most device time.  Runs after the main path's launch counts are
@@ -1164,20 +1188,26 @@ def phase_dse_equivalence(device) -> None:
           f"rel {err:.3g} (rtol 1e-5)")
 
 
-def fixture_pareto_dse(ref: dict, device):
-    """The port's pareto_dse at the fixture's configuration (bench_pareto.py's
-    full run), with the fixture's draws, budgets and hypervolume box."""
-    from repro_torch.core import popsim
-    from repro_torch.workloads import get_workload
-
+def pareto_kwargs(ref: dict) -> dict:
+    """``pareto_dse``'s arguments at the fixture's configuration (bench_pareto.py's
+    full run): its seeds, sizes, draws, budgets and hypervolume box."""
     noise = tuple({k.split("/")[2]: v for k, v in ref.items() if k.startswith(f"noise/{t}/")} for t in ("tech", "arch"))
-    return popsim.pareto_dse(
-        [get_workload(str(n), device=device) for n in ref["workloads"]],
+    return dict(
         seeds=tuple(str(s) for s in ref["seeds"]), population=int(ref["population"]), steps=int(ref["steps"]),
         lr=float(ref["lr"]), metrics=tuple(str(m) for m in ref["metrics"]),
         area_budget=float(ref["area_budget"]), power_budget=float(ref["power_budget"]),
         penalty_weight=tuple(float(p) for p in ref["penalty"]), hv_box=(ref["hv_lo"], ref["hv_ref"]),
-        noise=noise, mix_draws=ref["mix_draws"], hv_samples=ref["hv_samples"], device=device)
+        noise=noise, mix_draws=ref["mix_draws"], hv_samples=ref["hv_samples"])
+
+
+def fixture_pareto_dse(ref: dict, device):
+    """The port's pareto_dse at the fixture's configuration, with the
+    fixture's draws, budgets and hypervolume box."""
+    from repro_torch.core import popsim
+    from repro_torch.workloads import get_workload
+
+    return popsim.pareto_dse([get_workload(str(n), device=device) for n in ref["workloads"]], device=device,
+                             **pareto_kwargs(ref))
 
 
 def _rel(got, want):
@@ -1354,8 +1384,195 @@ def phase_dse_scale(device, keep: dict) -> None:
                                                                        spec=spec)
 
 
+# --------------------------------------------------------------------------- #
+# the session path: the Session façade over the engines, bit for bit
+# --------------------------------------------------------------------------- #
+
+SESSION_BATCH_BUCKET = 8  # the pinned request axis of the LM cells' batched queries
+SESSION_QPS_NB = (8, 64)  # simulate_batch throughput at these request axes
+SESSION_SMALL = ("lstm", "dlrm", "gcn", "graphsage", "stencil2d", "merge_sort", "bfs_graph", "vgg16")  # (1, 32)
+
+
+def lm_workloads(device) -> list:
+    """The 5 LM cells, each a Workload padded to 1,024 vertices (one bucket)."""
+    from repro_torch.api import Workload
+    from repro_torch.workloads import lm_cell
+
+    return [Workload(lm_cell(a, s, device=device).pad_to(1024), labels=(f"{a}:{s}",), device=device) for a, s in LM]
+
+
+def phase_session_simulate(sess, device) -> None:
+    """The 16 workloads of results/bench/sim_speed.json through
+    ``Session.simulate`` at their buckets: each reply and ``Session.perf``
+    equal to simulate_stacked on the same stack bit for bit, cycles within
+    rtol 1e-5 of ``cycles_dsim``; the first reply of the new session timed."""
+    from repro_torch.api import Workload
+    from repro_torch.core import simulate_stacked
+
+    rows = json.loads((ROOT / "results/bench/sim_speed.json").read_text())["rows"]
+    a = sess.architecture
+    t0 = time.perf_counter()
+    sess.simulate("lstm")
+    first_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for r in rows:
+        name = r["workload"]
+        w = Workload(graph(name, device), labels=(name,), device=device)
+        rep = sess.simulate(w).workloads[0]
+        eng = simulate_stacked(a.tech, a.arch, w.stacked, a.spec)
+        check(trees_equal(sess.perf(w), eng), f"session {name}: Session.perf differs from simulate_stacked")
+        got = (rep.cycles, rep.runtime_s, rep.energy_j, rep.edp, rep.power_w)
+        want = tuple(float(x[0]) for x in (eng.cycles, eng.runtime, eng.energy, eng.edp, eng.power))
+        check(got == want, f"session {name}: the report {got} is not simulate_stacked's {want} bit for bit")
+        ok, err = rel_close(rep.cycles, r["cycles_dsim"], 1e-5)
+        check(ok, f"session {name}: cycles {rep.cycles} vs cycles_dsim {r['cycles_dsim']} (rel {err:.3g})")
+        worst = max(worst, err)
+    print(f"  session simulate: {len(rows)} workloads of sim_speed.json at their buckets, each reply and "
+          f"Session.perf equal to simulate_stacked bit for bit, cycles within rel {worst:.3g} of cycles_dsim "
+          f"(rtol 1e-5); first reply of a new session (lstm, bucket (1, 32); kernels already loaded) "
+          f"{first_ms:.3f} ms; {sess.stats}")
+
+
+def phase_session_explain_optimize(sess, device) -> None:
+    """``explain`` and ``optimize`` (20 steps) on the LM stack [5, 1024]: the
+    elasticities equal a direct autograd.grad of the log objective, the
+    history and the optimized design equal dopt.optimize's, bit for bit."""
+    import torch
+
+    from repro_torch.api import Workload, _param_names
+    from repro_torch.core import dhdl, optimize, stacked_log_objective
+    from repro_torch.core.dopt import from_log, to_log
+
+    w = Workload([g for lw in lm_workloads(device) for g in lw.graphs], labels=tuple(f"{a}:{s}" for a, s in LM),
+                 device=device)
+    a = sess.architecture
+    rep = sess.explain(w)
+    tz = to_log(a.tech).map(lambda x: x.detach().requires_grad_(True))
+    az = to_log(a.arch).map(lambda x: x.detach().requires_grad_(True))
+    val, _ = stacked_log_objective(from_log(tz), from_log(az), w.stacked, "edp", spec=a.spec)
+    wrt = tz.leaves() + az.leaves()
+    grads = torch.autograd.grad(val, wrt, allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(x) if g is None else g).reshape(-1) for x, g in zip(wrt, grads)]).tolist()
+    check({at.parameter: at.elasticity for at in rep.attribution} == dict(zip(_param_names(), flat)),
+          "session explain: elasticities differ from a direct autograd.grad")
+    top = ", ".join(f"{at.parameter} {at.elasticity:+.4f}" for at in rep.bottlenecks(3))
+    print(f"  session explain LM stack {w.bucket}: {len(rep.attribution)} elasticities equal to a direct "
+          f"autograd.grad bit for bit; top: {top}")
+
+    res = sess.optimize(w, steps=20, lr=0.05)
+    eng = optimize(w.stacked, tech=a.tech, arch=a.arch, spec=a.spec, objective="edp", steps=20, lr=0.05,
+                   device=device)
+    check(list(res.objective_history) == [math.exp(v) for v in eng.history["objective"]],
+          "session optimize: history differs from dopt.optimize")
+    check(res.dhd == dhdl.serialize_arch(name="base_opt", spec=a.spec, arch=eng.arch, tech=eng.tech),
+          "session optimize: the optimized design differs from dopt.optimize's")
+    ok, err = rel_close([math.log(v) for v in res.objective_history], REF_HISTORY["objective"], 1e-3)
+    check(ok, f"session optimize: history off the reference package's by rel {err:.3g}")
+    print(f"  session optimize LM stack, 20 steps: history and design equal to dopt.optimize bit for bit; "
+          f"within rel {err:.2e} of the reference's history; {res.improvement:.1f}x better")
+
+
+def phase_session_frontier(sess, device) -> None:
+    """``frontier`` at bench_pareto.py's configuration with the DSE path's
+    draws, equal to pareto_dse on the same stack bit for bit."""
+    import numpy as np
+
+    from repro_torch.api import Workload
+    from repro_torch.core import popsim
+
+    ref = dict(np.load(PARETO_FIXTURE))
+    kw = pareto_kwargs(ref)
+    w = Workload([str(n) for n in ref["workloads"]], device=device)
+    t0 = time.perf_counter()
+    fr = sess.frontier(w, **kw)
+    wall = time.perf_counter() - t0
+    eng = popsim.pareto_dse(w.stacked, device=device, **kw)
+    check(np.array_equal(fr.raw.history, eng.history) and np.array_equal(fr.raw.log_metrics, eng.log_metrics),
+          "session frontier: history or log metrics differ from pareto_dse")
+    check([p.dhd for p in fr.front] == [win["dhd"] for win in eng.winners] and fr.hypervolume == eng.hypervolume,
+          "session frontier: front or hypervolume differs from pareto_dse")
+    print(f"  session frontier, bench configuration at bucket {w.bucket}: front of {len(fr.front)}, hypervolume "
+          f"{fr.hypervolume:.6g} (fixture {float(ref['hypervolume']):.6g} at the natural V), equal to pareto_dse "
+          f"bit for bit; wall {wall:.3f} s")
+
+
+def phase_session_batch(sess, device) -> None:
+    """The 5 LM cells as 5 queries of simulate_batch and explain_batch at
+    request_bucket=8: each reply equal as to_json text to the same query sent
+    alone at that bucket and to it in the batch in reversed order."""
+    ws = lm_workloads(device)
+    nb = SESSION_BATCH_BUCKET
+    for method in ("simulate_batch", "explain_batch"):
+        call = getattr(sess, method)
+        together = call(ws, request_bucket=nb)
+        alone = [call([w], request_bucket=nb)[0] for w in ws]
+        reverse = call(ws[::-1], request_bucket=nb)[::-1]
+        for w, t, a, r in zip(ws, together, alone, reverse):
+            check(t.to_json() == a.to_json() == r.to_json(),
+                  f"session {method} {w.labels[0]}: the reply depends on the batch's composition")
+    print(f"  session batches: the 5 LM cells through simulate_batch and explain_batch at request_bucket={nb}, "
+          "each reply equal as to_json text alone, together and in reversed order")
+
+
+def phase_session_warm(sess, device, smi: str, keep: dict) -> None:
+    """Warm calls build nothing: the same workload, another workload of the
+    bucket and another design point, for simulate, explain and the batched
+    programs (preheated).  Then the façade's warm times (printed, not gated)."""
+    from repro_torch.api import Workload
+    from repro_torch.core import instrument
+
+    lm = Workload([g for lw in lm_workloads(device) for g in lw.graphs], device=device)
+    qs = {nb: [SESSION_SMALL[i % len(SESSION_SMALL)] for i in range(nb)] for nb in SESSION_QPS_NB}
+    archs = {nb: [("base", "edge", "datacenter", "mobile")[i % 4] for i in range(nb)] for nb in SESSION_QPS_NB}
+    t0 = time.perf_counter()
+    pre = sess.preheat("lstm", request_buckets=SESSION_QPS_NB)
+    pre_s = time.perf_counter() - t0
+    for nb in SESSION_QPS_NB:  # the designs' first parse is host work, not a build
+        sess.simulate_batch(qs[nb], architectures=archs[nb], request_bucket=nb)
+    before = instrument.snapshot()
+    calls = {
+        "simulate lstm": lambda: sess.simulate("lstm"),
+        "simulate merge_sort": lambda: sess.simulate("merge_sort"),
+        "simulate lstm on edge": lambda: sess.simulate("lstm", architecture="edge"),
+        "explain lstm": lambda: sess.explain("lstm"),
+        "explain dlrm on datacenter": lambda: sess.explain("dlrm", architecture="datacenter"),
+        "simulate LM stack": lambda: sess.simulate(lm),
+        "explain LM stack": lambda: sess.explain(lm),
+    }
+    for fn in calls.values():
+        fn()
+    ms = {k: median_ms(calls[k], device, n=10) for k in ("simulate lstm", "explain lstm", "simulate LM stack",
+                                                       "explain LM stack")}
+    qps = {nb: nb / median_ms(lambda nb=nb: sess.simulate_batch(qs[nb], architectures=archs[nb], request_bucket=nb),
+                              device, n=10) * 1e3
+           for nb in SESSION_QPS_NB}
+    after = instrument.snapshot()
+    check(after == before, f"session: warm calls built {dict(set(after.items()) - set(before.items()))}")
+    print(f"  session warm: preheat {pre} in {pre_s:.3f} s; then {len(calls)} kinds of warm call (same workload, "
+          f"another of its bucket, another design point) and the timing loops built nothing "
+          f"(instrument.trace_count() {sum(after.values())} before and after)")
+    print(f"  session times on {smi}: warm median "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + "; simulate_batch " + ", ".join(f"nb={nb} {q:.1f} queries/s" for nb, q in qps.items()))
+    keep["session_simulate_lstm"] = calls["simulate lstm"]
+
+
+def phase_session(device, smi: str, keep: dict) -> None:
+    from repro_torch.api import Session
+
+    t0 = time.perf_counter()
+    sess = Session("base", device=device)
+    phase_session_simulate(sess, device)
+    phase_session_explain_optimize(sess, device)
+    phase_session_frontier(sess, device)
+    phase_session_batch(sess, device)
+    phase_session_warm(sess, device, smi, keep)
+    print(f"  session path wall {time.perf_counter() - t0:.1f} s; {sess.stats}")
+
+
 SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
 DSE_KERNELS = ("mapper_carries", "mapper_carries_backward")
+SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
 AGREE_KERNELS = ("flash_attention",)  # float32 attention
@@ -1416,6 +1633,8 @@ def main() -> int:
                               lambda: phase_dse_equivalence(device), lambda: phase_dse_bench(device, dse),
                               lambda: phase_dse_scale(device, dse)], DSE_KERNELS).items():
         launches[k] += n  # the simulator path's and the DSE path's launches of K1
+    for k, n in drive("session", [lambda: phase_session(device, smi, dse)], SESSION_KERNELS).items():
+        launches[k] += n  # and the session path's
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
     zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers

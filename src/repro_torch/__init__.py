@@ -1,13 +1,18 @@
-"""DRAGON in PyTorch: DGen, DSim, DOpt, the .dhd language and population
-Pareto DSE, with hand-written CUDA kernels for Hopper.
+"""DRAGON in PyTorch: the Session façade over DGen, DSim, DOpt, the .dhd
+language and population Pareto DSE, with hand-written CUDA kernels for Hopper.
 
-    from repro_torch import TechParams, ArchParams, get_workload, simulate
+    from repro_torch import Session
 
-    g = get_workload("bert_base")          # on the card
-    perf = simulate(TechParams.default(), ArchParams.default(), g)
+    sess = Session("edge")                 # on the card
+    print(sess.simulate("bert_base"))      # an explainable SimReport
+    opt = sess.optimize("bert_base", steps=40)
 
-Every constructor that makes tensors takes ``device=None``, meaning the card;
-it raises when no GPU is present.  Pass ``device="cpu"`` to run the plain
+The engines below the façade keep their names here too (``simulate``,
+``optimize``, ``pareto_dse``, ...): they are the oracle the façade is held
+against, bit for bit.
+
+Every constructor that makes tensors (``Session`` too) takes ``device=None``,
+meaning the card; it raises when no GPU is present.  Pass ``device="cpu"`` to run the plain
 PyTorch versions of the kernels on the CPU.
 
 Names are imported lazily, so ``import repro_torch`` itself is cheap.
@@ -15,6 +20,14 @@ Names are imported lazily, so ``import repro_torch`` itself is cheap.
 from __future__ import annotations
 
 _EXPORTS = {
+    "Session": "repro_torch.api",
+    "Architecture": "repro_torch.api",
+    "Workload": "repro_torch.api",
+    "CacheStats": "repro_torch.api",
+    "SimReport": "repro_torch.api",
+    "OptResult": "repro_torch.api",
+    "FrontierResult": "repro_torch.api",
+    "Attribution": "repro_torch.api",
     "ArchParams": "repro_torch.core.params",
     "ArchSpec": "repro_torch.core.params",
     "TechParams": "repro_torch.core.params",
@@ -30,7 +43,6 @@ _EXPORTS = {
     "stacked_log_objective": "repro_torch.core.dsim",
     "mixed_log_objective": "repro_torch.core.dsim",
     "optimize": "repro_torch.core.dopt",
-    "OptResult": "repro_torch.core.dopt",
     "derive_tech_targets": "repro_torch.core.dopt",
     "pareto_dse": "repro_torch.core.popsim",
     "load_arch": "repro_torch.core.dhdl",

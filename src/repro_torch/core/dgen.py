@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import instrument
 from repro_torch.core.params import (
     MEM_TYPES,
     N_MEM,
@@ -266,7 +267,8 @@ def _comp_metrics(tech: TechParams, arch: ArchParams) -> dict:
 @functools.lru_cache(maxsize=64)
 def _spec_arrays(spec: ArchSpec, device: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(one-hot memory-technology weights, mem mask, comp mask) of a spec,
-    copied to ``device`` once."""
+    copied to ``device`` once (one ``dgen.spec_arrays`` build)."""
+    instrument.count_trace("dgen.spec_arrays")
     one_hot = np.eye(len(MEM_TYPES), dtype=np.float32)[spec.mem_type_idx()]
     return tuple(torch.as_tensor(a, device=device) for a in (one_hot, spec.mem_mask(), spec.comp_mask()))
 

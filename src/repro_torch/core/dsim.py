@@ -84,6 +84,14 @@ def simulate(
     return simulate_chw(chw, g, mcfg)
 
 
+def _per_vertex(x: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., V, N] against a per-class ``rate``: [N], or with leading
+    axes ([nb, 1, N] for a batch of designs) as one product per design."""
+    if rate.ndim == 1:
+        return x @ rate
+    return (x @ rate.unsqueeze(-1)).squeeze(-1)
+
+
 def simulate_breakdown(
     tech: TechParams,
     arch: ArchParams,
@@ -99,16 +107,20 @@ def simulate_breakdown(
       * ``e_level_dyn`` / ``e_level_leak`` [N_MEM] — per-memory-level energy;
       * ``e_comp_dyn`` / ``e_comp_leak`` [N_COMP] — per-compute-class energy;
       * ``t_level`` [N_MEM] — demanded transfer time per level.
+
+    Each array also carries the graph's leading axes ([W] for a stack), and
+    designs with a leading axis shaped [nb, 1] against a [nb, W, V] graph (one
+    design a request) give [nb, W, ...] arrays, no request mixing with another.
     """
     chw = specialize(tech, arch, spec, type_weights)
     perf = simulate_chw(chw, g, mcfg)
     bd = map_workload_breakdown(chw, g, mcfg)
     ms = perf.state
-    leak_w = chw.total_leakage
+    leak_w = chw.total_leakage[..., None]  # against [..., V], a design lead included
     e_v_dyn = (
-        g.n_read @ chw.read_energy_pb
-        + g.n_write @ chw.write_energy_pb
-        + g.n_comp @ chw.energy_per_flop
+        _per_vertex(g.n_read, chw.read_energy_pb)
+        + _per_vertex(g.n_write, chw.write_energy_pb)
+        + _per_vertex(g.n_comp, chw.energy_per_flop)
     ) * bd["active"]
     extras = dict(
         time_v=bd["time_v"],

@@ -34,6 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from repro_torch import instrument
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file under csrc/
 SOURCES = {
@@ -210,7 +212,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name`` (built at first use)."""
+    """The loaded shared library of kernel ``name`` (built at first use).
+    Each library loaded counts one ``runtime.build`` in ``instrument``."""
     with _LOCK:
         if name not in _LIBS:
             for n, path in build_all().items():
@@ -218,6 +221,7 @@ def library(name: str) -> ctypes.CDLL:
                     lib = ctypes.CDLL(str(path))
                     _bind(n, lib)
                     _LIBS[n] = lib
+                    instrument.count_trace("runtime.build")
         return _LIBS[name]
 
 
