@@ -15,14 +15,17 @@ Phases (each raises on failure, so any failure exits non-zero):
    the main paths give it (K1: the mapper's fused carries, forward and
    backward, their clamp codes equal to the plain version's, and the bare
    affine scan; attention: each call must launch the kernel that
-   ``flash_attention.route`` names for its dtype and head width; the SSD scan
+   ``flash_attention.route`` names for its dtype and head width, at head
+   widths from 8 to 256 in float32 and bf16; the SSD scan
    in float32: the kernel and its plain version each against the float64
    recurrence on 8 draws; the selective scan at each prompt length the serving
    path gives it, its float64 error printed; popsim bit for bit at 512 and
    65,536 designs, timed at both); each one's device time per call
    (torch.profiler over many calls), its plain version's, and for attention the
    time of PyTorch's scaled_dot_product_attention on the same inputs (a
-   yardstick the port never calls);
+   yardstick the port never calls), the float32-pipe kernel timed at
+   [1,32,4096,64] and [1,32,4096,128] in float32 and at kimi-k2's bf16 heads
+   (q [1,64,4096,112], k and v [1,8,4096,112]);
 4. the simulator path, with the launch counts set to 0 just before and read
    just after:
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
@@ -242,31 +245,54 @@ def profiled_rows(fn, n: int, ok=None) -> list[tuple[float, int, str]]:
     return rows
 
 
-def device_ms(fn, n: int, kernel: str | None = None) -> tuple[float, str]:
-    """Device time per call of ``fn`` from torch.profiler over ``n`` calls
-    after one warm-up call: with ``kernel``, the mean time of the launches of
-    kernels whose name holds it (the profiler may miss a launch at the edge
-    of its window, so the mean is over the launches it saw; each kernel timed
-    so launches one device kernel a call); without, the summed time of every
-    kernel the calls launch, over ``n``.  Should the profiler see no device
-    time, CUDA events around the ``n`` calls run back to back, over ``n``.
-    Returns (ms, method)."""
+def queued_ms(fn, n: int) -> float:
+    """Device time per call of ``n`` calls of ``fn`` queued behind a spin
+    kernel that outlasts their launches, so that no host gap falls between
+    them: CUDA events around the ``n`` calls, over ``n``.  One call first."""
     import torch
 
-    ok = None if kernel is None else lambda rows: n // 2 <= sum(r[1] for r in rows if kernel in r[2]) <= n
-    rows = [r for r in profiled_rows(fn, n, ok) if kernel is None or kernel in r[2]]
-    if rows:
-        seen = sum(r[1] for r in rows)
-        if kernel is not None:
-            check(n // 2 <= seen <= n, f"profiler saw {seen} launches of {kernel} in {n} calls")
-        return sum(r[0] for r in rows) / (seen if kernel is not None else n), f"profiler, {seen} launches"
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # a bound on one call's launches
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * min(1.0, 0.005 + 2 * n * host_s)))  # cycles at ~2 GHz
     a.record()
     for _ in range(n):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / n, "events over back-to-back calls"
+    return a.elapsed_time(b) / n
+
+
+def call_ms(fn, n: int) -> tuple[float, str]:
+    """``queued_ms`` with its method, for whole calls that launch several
+    kernels and never wait on the host."""
+    return queued_ms(fn, n), "events around calls queued behind a spin kernel"
+
+
+def device_ms(fn, n: int, kernel: str | None = None) -> tuple[float, str]:
+    """Device time per call of ``fn`` from torch.profiler over ``n`` calls
+    after one warm-up call: with ``kernel``, the mean time of the launches of
+    kernels whose name holds it (the profiler may miss launches, so the mean
+    is over the launches it saw; each kernel timed so launches one device
+    kernel a call); without, the summed time of every kernel the calls
+    launch, over ``n`` (low where the profiler misses launches: attention
+    times its whole calls by ``queued_ms``).  Should the profiler see no
+    device time, or fewer than half of the kernel's launches (in a long
+    process it has seen 3 of 20), ``queued_ms``.  Returns (ms, method)."""
+    ok = None if kernel is None else lambda rows: n // 2 <= sum(r[1] for r in rows if kernel in r[2]) <= n
+    rows = [r for r in profiled_rows(fn, n, ok) if kernel is None or kernel in r[2]]
+    seen = sum(r[1] for r in rows)
+    method = "events around calls queued behind a spin kernel"
+    if rows and kernel is None:
+        return sum(r[0] for r in rows) / n, f"profiler, {seen} launches"
+    if rows:
+        check(seen <= n, f"profiler saw {seen} launches of {kernel} in {n} calls")
+        if seen >= n // 2:
+            return sum(r[0] for r in rows) / seen, f"profiler, {seen} launches"
+        method += f" (the profiler saw {seen} of {n} launches)"
+    return queued_ms(fn, n), method
 
 
 def kernel_split_ms(fn, n: int, pattern: str) -> dict[str, float]:
@@ -335,6 +361,8 @@ def phase_build() -> None:
     paths = runtime.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(paths)} kernels; each: "
           + ", ".join(f"{n} {s:.1f} s" for n, s in runtime.BUILD_SECONDS.items()))
+    if "flash_attention" in runtime.BUILD_SECONDS:
+        print(f"  flash_attention.cu built in {runtime.BUILD_SECONDS['flash_attention']:.1f} s")
     for name, log in runtime.BUILD_LOG.items():
         for line in log.strip().splitlines():
             print(f"  {name}: {line}")
@@ -596,11 +624,58 @@ def _close_rows(got, want, rtol: float, what: str) -> float:
 _ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
 
+def _attention_record(q, k, v, peak: float, kernel: str, n: int, what: str) -> dict:
+    """One timed attention record, causal, on q, k, v: the kernel ``route``
+    names held against the plain version on these inputs (one launch) and,
+    in float32, each against a float64 oracle (printed); device ms of the
+    kernel, the plain version and SDPA on the same inputs (grouped heads
+    through ``enable_gqa``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, runtime
+
+    B, Hq, S, D = q.shape
+    gqa = k.shape[1] != Hq
+    check(fa.route(q.dtype, D) == kernel, f"{what}: route names {fa.route(q.dtype, D)}, not {kernel}")
+    before = runtime.LAUNCHES[kernel]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(runtime.LAUNCHES[kernel] == before + 1, f"{what} did not launch {kernel} once")
+    want = ref.reference_attention(q, k, v, causal=True)
+    err = _close(got, want, **_tol(q.dtype, 2e-5), what=what)
+    row = _close_rows(got, want, _ROW_RTOL[str(q.dtype)[6:]], what)
+    line = f"  {what}: max abs err {err:.3g}, max row err {row:.3g} of the row's norm"
+    if q.dtype == torch.float32:
+        group = Hq // k.shape[1]
+        s64 = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double().repeat_interleave(group, 1)) * D ** -0.5
+        s64 = s64.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=q.device).tril(), -1e30)
+        o64 = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s64, -1), v.double().repeat_interleave(group, 1))
+        del s64
+        line += (f"; against float64: kernel {float((got.double() - o64).abs().max()):.3g}, "
+                 f"plain version {float((want.double() - o64).abs().max()):.3g}")
+        del o64
+    print(line)
+    ops = fa.operations(B, Hq, S, S, D, True)
+    kw = dict(enable_gqa=True) if gqa else {}
+    rec = dict(
+        kernel=kernel, max_abs_err=err, bytes=2 * (q.numel() + k.numel()) * q.element_size(), ops=ops, peak=peak,
+        exps=ops // (4 * D + 1),  # one exponential per kept (query, key) pair
+        ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, D ** -0.5), n, f"{kernel}_kernel"),
+        plain_ms=call_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
+        library_ms=call_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw), n))
+    del got, want
+    return rec
+
+
 def attention_records(device) -> dict:
     """K3's two kernels against the plain version at the serving path's
     shapes and beyond; records timed at q, k, v [1,32,4096,64], the tensor-core
     kernel in bf16 (the serving path's) and the other in float32 (the
-    agreement path's)."""
+    agreement path's), and the float32-pipe kernel at [1,32,4096,128] in
+    float32 and at kimi-k2's bf16 heads, q [1,64,4096,112] with k and v
+    [1,8,4096,112]."""
     import torch
     import torch.nn.functional as F
 
@@ -630,6 +705,14 @@ def attention_records(device) -> dict:
     # the serving path's other two prompts (1000: a q tile's second warpgroup partly
     # past Sq, the keys ragged at the diagonal; 64: one tile)
     cases += [(randn_k3, 32, 32, S, S, 64, True, (bf16, f32)) for S in (1000, 64)]
+    # every head width the reference takes, on the float32-pipe kernel: float32
+    # inside and at each of its width caps (64, 128, 256), bf16 off the
+    # tensor-core kernel's two widths; ragged Sq and Skv, GQA 4:1, causal and
+    # full; and at D = 128, rows that see no key (Sq > Skv)
+    cases += [(randn_k3, 8, 2, 257, 333, D, causal, (f32,))
+              for D in (8, 48, 80, 112, 128, 256) for causal in (True, False)]
+    cases += [(randn_k3, 8, 2, 257, 333, D, causal, (bf16,)) for D in (8, 96, 112, 256) for causal in (True, False)]
+    cases += [(randn_k3, 8, 2, 300, 200, 128, causal, (f32,)) for causal in (True, False)]
     err = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
     for (draw, Hq, Hkv, Sq, Skv, D, causal, dtypes) in cases:
         for dtype in dtypes:
@@ -652,14 +735,23 @@ def attention_records(device) -> dict:
     rec["flash_attention_sm90"] = dict(  # q, k, v in and o out, bf16
         max_abs_err=err["flash_attention_sm90"], bytes=4 * q.numel() * 2, ops=ops, peak=BF16_TC_OPS_PER_S, exps=exps,
         ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5), 20, "flash_attention_sm90_kernel"),
-        plain_ms=device_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+        plain_ms=call_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
+        library_ms=call_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
     q, k, v = (x.float() for x in (q, k, v))
     rec["flash_attention"] = dict(  # the same inputs in float32, the kernel's path in the agreement phase
         max_abs_err=err["flash_attention"], bytes=4 * q.numel() * 4, ops=ops, peak=FP32_OPS_PER_S, exps=exps,
         ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5), 10, "flash_attention_kernel"),
-        plain_ms=device_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+        plain_ms=call_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
+        library_ms=call_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
+    # the float32-pipe kernel at the dense families' head width, and at
+    # kimi-k2's bf16 heads (64 query heads, 8 KV heads, 112 wide: serving)
+    q, k, v = (randn_k3(1, 32, 4096, 128) for _ in range(3))
+    rec["flash_attention/f32_d128"] = _attention_record(q, k, v, FP32_OPS_PER_S, "flash_attention", 10,
+                                                        "flash_attention q,k,v[1,32,4096,128] float32 causal")
+    q, k, v = (randn_k3(1, H, 4096, 112).to(bf16) for H in (64, 8, 8))
+    rec["flash_attention/bf16_d112_gqa8"] = _attention_record(
+        q, k, v, BF16_TC_OPS_PER_S, "flash_attention", 10,
+        "flash_attention q[1,64,4096,112] kv[1,8,4096,112] bf16 causal")
     del q, k, v
     return rec
 
@@ -1654,9 +1746,10 @@ def main() -> int:
         terms = bound_terms({"peak": FP32_OPS_PER_S, "exps": 0, **r})
         by = "bytes" if terms["bytes"] >= terms["operations_and_exponentials"] else "operations"
         bound = terms["bytes" if by == "bytes" else "operations_and_exponentials"]
+        kernel = r.get("kernel", name)  # a record of a kernel at another shape names it
         kernels.append(dict(
-            name=name, route="cuda", source=META[name][0], replaces=META[name][1],
-            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            name=name, route="cuda", source=META[kernel][0], replaces=META[kernel][1],
+            launches=launches[kernel], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bound, bound_by=by, bound_terms_ms=terms, library_ms=r.get("library_ms"),
         ))
         for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape", "bound_ms_by_shape"):

@@ -5,11 +5,13 @@ The op ``torch.ops.repro_torch.flash_attention`` launches a kernel on CUDA
 tensors and runs the plain version, ``ref.reference_attention``, on CPU
 tensors.  Which kernel is a function of the dtype and the head width alone
 (:func:`route`): bf16 at D = 64 or 128 goes to the tensor cores
-(``csrc/flash_attention_sm90.cu``: wgmma, K/V tiles by TMA); float32, and bf16
-at D = 16 or 32, to ``csrc/flash_attention.cu`` on the float32 pipes, whose
-float32 numbers match the reference's 2e-5 (a tensor-core product in float32
-would be TF32).  Each kernel has its own launch count.  Both kernels mask
-ragged Sq and Skv themselves, so no block size has to divide the sequence.
+(``csrc/flash_attention_sm90.cu``: wgmma, K/V tiles by TMA); every other
+float32 or bf16 head width from 1 to 256 to ``csrc/flash_attention.cu`` on the
+float32 pipes, whose float32 numbers match the reference's 2e-5 (a
+tensor-core product in float32 would be TF32).  That kernel is compiled at
+three width caps (64, 128, 256) and takes any D up to each.  Each kernel has
+its own launch count.  Both kernels mask ragged Sq and Skv themselves, so no
+block size has to divide the sequence.
 """
 from __future__ import annotations
 
@@ -18,22 +20,22 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import reference_attention
 
-# the head widths each kernel is compiled for
 SM90_HEAD_DIMS = (64, 128)  # flash_attention_sm90: bf16 on the tensor cores
-F32_PIPE_HEAD_DIMS = (16, 32, 64)  # flash_attention: float32 pipes; float32, and bf16 below 64
-HEAD_DIMS = {torch.float32: F32_PIPE_HEAD_DIMS, torch.bfloat16: (16, 32, 64, 128)}
-_DTYPES = tuple(HEAD_DIMS)
+MAX_HEAD_DIM = 256  # flash_attention takes every other head width from 1 to this
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel (its ``runtime.LAUNCHES`` key) that attention over ``dtype``
     q, k, v of head width ``D`` launches on the card; raises for a pair no
-    kernel is built for."""
+    kernel takes (a type other than float32 and bfloat16, or D outside 1 to
+    ``MAX_HEAD_DIM``)."""
+    if dtype not in _DTYPES or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: no kernel for head width {D} in {dtype}: the kernels take "
+                         f"float32 and bfloat16 at head widths 1 to {MAX_HEAD_DIM}")
     if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
         return "flash_attention_sm90"
-    if dtype in HEAD_DIMS and D in F32_PIPE_HEAD_DIMS:
-        return "flash_attention"
-    raise ValueError(f"flash_attention: head width {D} in {dtype} is not one of {HEAD_DIMS.get(dtype, ())}")
+    return "flash_attention"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -312,7 +312,7 @@ ATTN_SHAPES = [
     (1, 4, 2, 300, 200, 64),     # Sq > Skv at D = 64: whole q tiles of rows that see no key
     (2, 8, 2, 1, 300, 64),       # Sq = 1
 ]
-# head width 128: bf16 only (the float32 kernel stops at 64)
+# head width 128: the tensor-core kernel in bf16, the float32-pipe kernel in float32
 ATTN_SHAPES_128 = [
     (1, 4, 4, 256, 256, 128),    # MHA
     (2, 8, 2, 200, 200, 128),    # GQA 4:1, ragged
@@ -320,12 +320,27 @@ ATTN_SHAPES_128 = [
     (1, 4, 1, 300, 200, 128),    # Sq > Skv: early rows see no key
     (2, 8, 2, 1, 129, 128),      # Sq = 1
 ]
+# the other head widths, all on the float32-pipe kernel: inside and at each of
+# its width caps (64, 128, 256), and widths that are not a multiple of 4 or 8
+# (its copies element by element)
+ATTN_SHAPES_WIDE = [
+    (1, 4, 4, 200, 200, 48),
+    (2, 8, 2, 100, 333, 112),    # kimi-k2's head width, GQA 4:1, Sq < Skv
+    (1, 4, 2, 300, 200, 112),    # Sq > Skv
+    (1, 2, 2, 65, 97, 80),
+    (1, 2, 2, 64, 64, 96),
+    (1, 4, 4, 129, 129, 256),
+    (1, 8, 2, 70, 50, 256),      # Sq > Skv, GQA
+    (1, 2, 2, 64, 70, 200),
+    (1, 2, 1, 33, 33, 8),
+    (1, 2, 2, 64, 70, 5),
+]
 
 
-def _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+def _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype, rows=True):
     """One call of the wrapper: the launch count of the kernel ``route`` names
     rises by one and no other attention count moves; the output is the plain
-    version's within ``_TOL``."""
+    version's within ``_TOL`` and, with ``rows``, row by row."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, runtime
 
@@ -342,7 +357,8 @@ def _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
     assert got.dtype == dtype
     want = ref.reference_attention(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), **_TOL[dtype])
-    _assert_rows_close(got, want, dtype)
+    if rows:
+        _assert_rows_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -352,15 +368,51 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, caus
     _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES_128)
-def test_flash_attention_sm90_head_width_128_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal):
-    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, torch.bfloat16)
+def test_flash_attention_head_width_128_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES_WIDE)
+def test_flash_attention_other_head_widths_match_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_width_1_matches_plain(cuda, causal, dtype):
+    """At D = 1 a row is one output, so the row bound would be a relative bound
+    on each output with no absolute floor, which the order of a float32 sum
+    alone breaks where an output lies near 0; held to the elementwise bound."""
+    _attention_case(cuda, 1, 2, 2, 50, 50, 1, causal, dtype, rows=False)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 112), (torch.bfloat16, 96)],
+                         ids=["f32-64", "f32-112", "bf16-96"])
+def test_flash_attention_reads_bases_off_a_16_byte_boundary(cuda, dtype, D):
+    """The float32-pipe kernel copies 16 bytes at a time only from 16-byte
+    aligned bases; from others it copies element by element."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator("cuda").manual_seed(D + 1)
+    q, k, v = (torch.randn(1 + 2 * 200 * D, generator=gen, device=cuda).to(dtype)[1:].view(1, 2, 200, D)
+               for _ in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.reference_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **_TOL[dtype])
+    _assert_rows_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)],
-                         ids=["f32-64", "bf16-64", "bf16-128"])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128),
+                                     (torch.float32, 128), (torch.bfloat16, 112)],
+                         ids=["f32-64", "bf16-64", "bf16-128", "f32-128", "bf16-112"])
 def test_flash_attention_takes_a_negative_scale(cuda, dtype, D, causal):
     """The tensor-core kernel takes the max of the raw scores where it folds the
     scale into the exponent, which holds only for a scale >= 0."""
@@ -577,20 +629,21 @@ def test_selective_scan_kernel_takes_unaligned_bases(cuda, dtype):
     torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
 
 
-def test_flash_attention_rejects_head_widths_it_is_not_built_for(cuda):
-    from repro_torch.kernels import flash_attention as fa
-
-    q = torch.zeros(1, 2, 8, 128, device=cuda)
-    with pytest.raises(ValueError, match="head width"):
-        fa.flash_attention(q, q, q)
+def test_flash_attention_runs_float32_at_head_width_128(cuda):
+    _attention_case(cuda, 1, 2, 2, 8, 8, 128, True, torch.float32)
 
 
 @pytest.mark.parametrize("D", [8, 96, 256])
-def test_flash_attention_rejects_bf16_head_widths_no_kernel_is_built_for(cuda, D):
+def test_flash_attention_runs_bf16_head_widths_off_the_tensor_cores(cuda, D):
+    _attention_case(cuda, 1, 2, 2, 8, 8, D, True, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_rejects_head_widths_past_256(cuda, dtype):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import runtime
 
-    q = torch.zeros(1, 2, 8, D, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 8, 257, device=cuda, dtype=dtype)
     before = dict(runtime.LAUNCHES)
     with pytest.raises(ValueError, match="head width"):
         fa.flash_attention(q, q, q)

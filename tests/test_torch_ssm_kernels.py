@@ -81,8 +81,8 @@ class TestAttention:
             fa.flash_attention(q, torch.randn(1, 3, 8, 16), torch.randn(1, 3, 8, 16))  # 4 heads onto 3
 
     # which kernel the op launches on the card is a function of dtype and head
-    # width alone: bf16 at 64 or 128 on the tensor cores, the rest on the
-    # float32 pipes (float32 there keeps the reference's 2e-5: no TF32)
+    # width alone: bf16 at 64 or 128 on the tensor cores, every other width up to
+    # 256 on the float32 pipes (float32 there keeps the reference's 2e-5: no TF32)
     @pytest.mark.parametrize("dtype,D,kernel", [
         (torch.bfloat16, 64, "flash_attention_sm90"), (torch.bfloat16, 128, "flash_attention_sm90"),
         (torch.bfloat16, 16, "flash_attention"), (torch.bfloat16, 32, "flash_attention"),
@@ -94,8 +94,8 @@ class TestAttention:
         assert fa.route(dtype, D) == kernel
         assert kernel in runtime.SOURCES and kernel in runtime.LAUNCHES
 
-    @pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.bfloat16, 96), (torch.bfloat16, 256),
-                                         (torch.bfloat16, 8), (torch.float16, 64)])
+    @pytest.mark.parametrize("dtype,D", [(torch.float32, 257), (torch.bfloat16, 257), (torch.bfloat16, 512),
+                                         (torch.float32, 0), (torch.float16, 64)])
     def test_route_raises_where_no_kernel_is_built(self, dtype, D):
         with pytest.raises(ValueError, match="head width"):
             fa.route(dtype, D)
