@@ -78,13 +78,36 @@ Phases (each raises on failure, so any failure exits non-zero):
    e. warm calls (the same workload, another of its bucket, another design
       point) build nothing (``core.instrument``); the first reply, the warm
       medians of simulate and explain and simulate_batch's queries/s printed;
-7. the serving path, with the launch counts set to 0 just before and read
+7. the design path, with the launch counts set to 0 just before and read just
+   after (K1 forward and backward must run on it): the design-serving tier
+   (``repro_torch.serving``) at benchmarks/bench_serving.py's traffic, seed
+   20260808, request bucket 16:
+   a. its 1,200-query design stream (simulate and explain over lstm,
+      merge_sort, gcn and stencil2d at (1, 32) across base, edge, datacenter
+      and mobile) and 80 queries on the 5 LM cells at (1, 1024), through
+      ``DesignService`` one at a time and ``BatchingDesignService`` (flush at
+      16 queries or 5 ms) by enqueue and flush: every query ok within its
+      deadline, batched replies equal to sequential ones as to_json text,
+      sampled replies equal to ``Session.simulate_batch`` / ``explain_batch``
+      alone; queries/s, p50/p99 reply ms and batches printed;
+   b. its four chaos gates on the batched service over 96 queries (an
+      optimize at 6 steps every 24): isolation, availability exactly 1.0
+      under transient-class chaos, clean replies bit-identical to the no-chaos
+      run under full chaos (availability >= 0.99), an identical seeded
+      replay; the schedules equal to tests/data/torch_chaos_schedule.json
+      (made by tools/make_torch_chaos_schedule.py from the reference package);
+   c. a restart: two fresh processes over one temporary cache_dir, the first
+      warming up lstm and an LM cell and serving 8 queries, the second serving
+      them after construction alone with zero builds and zero misses,
+      disk_loaded equal to the first's persisted, replies equal as to_json
+      text and its first query predicted warm;
+8. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
    each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
    (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each); zamba2's
    attention must go through the bf16 tensor-core kernel, 6 launches a request;
-8. the agreement path, with the launch counts set to 0 just before and read
+9. the agreement path, with the launch counts set to 0 just before and read
    just after: the fixture tests/data/torch_ssm_ref.npz (made by
    tools/make_torch_ssm_ref.py from the JAX models on the same numpy weights)
    against this package on the card in float32 (prefill logits and 8
@@ -461,11 +484,14 @@ def phase_kernels(device) -> dict:
 # batches, nb·W rows of one design each: [8, 32] and [64, 32] for
 # simulate_batch and preheat on (1, 32), [8, 1024] for the LM cells at
 # request_bucket=8, and [96, 128] for frontier, which pads the bench stack to
-# its bucket; the records are timed at [5, 1024], and at every shape in
+# its bucket; the design path's, one query a row at its pinned request bucket
+# of 16: [16, 32] for the bench's (1, 32) stream and [16, 1024] for the LM
+# cells; the records are timed at [5, 1024], and at every shape in
 # ms_by_shape
 DSE_CARRY_SHAPES = ((96, 109), (5120, 1024))
 SESSION_CARRY_SHAPES = ((8, 32), (64, 32), (8, 1024), (96, 128))
-ROW_CAP_SHAPES = DSE_CARRY_SHAPES + SESSION_CARRY_SHAPES  # a design, so a cap, a row
+DESIGN_CARRY_SHAPES = ((16, 32), (16, 1024))
+ROW_CAP_SHAPES = DSE_CARRY_SHAPES + SESSION_CARRY_SHAPES + DESIGN_CARRY_SHAPES  # a design, so a cap, a row
 CARRY_SHAPES = ((1, 1024), (len(LM), 1024), (len(CLASSIC), 256), *ROW_CAP_SHAPES)
 
 
@@ -1662,9 +1688,259 @@ def phase_session(device, smi: str, keep: dict) -> None:
     print(f"  session path wall {time.perf_counter() - t0:.1f} s; {sess.stats}")
 
 
+# --------------------------------------------------------------------------- #
+# the design path: the single-process design-serving tier at the reference
+# bench's traffic (benchmarks/bench_serving.py)
+# --------------------------------------------------------------------------- #
+
+DESIGN_SEED = 20260808  # bench_serving.py's _SEED
+DESIGN_BUCKET = 16  # its _REQUEST_BUCKET: sequential and batched dispatches share it
+DESIGN_QUERIES = 1200  # its design_bench stream, full run
+DESIGN_LM_QUERIES = 80  # the LM cells at full width, each alone at (1, 1024)
+DESIGN_ARCHS = (None, "edge", "datacenter", "mobile")  # None: the service's base
+CHAOS_QUERIES = 96  # its chaos_bench stream, full run, an optimize every 24
+CHAOS_FIXTURE = ROOT / "tests" / "data" / "torch_chaos_schedule.json"
+CHAOS_TRANSIENT = dict(seed=DESIGN_SEED, p_transient=0.35, p_compile_fail=0.2, p_cache_corrupt=0.2)
+CHAOS_FULL = dict(seed=DESIGN_SEED, p_transient=0.3, p_compile_fail=0.1, p_nan=0.25, p_latency=0.2, latency_s=0.02)
+RESTART_QUERIES = 8
+
+
+def design_queries(n: int) -> list:
+    """bench_serving.py's ``_design_queries``: simulate and explain alternating
+    over lstm, merge_sort, gcn and stencil2d (all at bucket (1, 32)) across
+    base, edge, datacenter and mobile."""
+    from repro_torch.serving import DesignQuery
+
+    loads = ("lstm", "merge_sort", "gcn", "stencil2d")
+    return [DesignQuery(i, ("simulate", "explain")[i % 2], loads[(i // 2) % 4], architecture=DESIGN_ARCHS[(i // 8) % 4])
+            for i in range(n)]
+
+
+def lm_design_queries(device, first: int) -> list:
+    """The 5 LM cells, each alone at (1, 1024), simulate and explain
+    alternating across the same 4 designs: DESIGN_LM_QUERIES queries."""
+    from repro_torch.serving import DesignQuery
+
+    ws = lm_workloads(device)
+    return [DesignQuery(first + i, ("simulate", "explain")[i % 2], ws[(i // 2) % len(ws)],
+                        architecture=DESIGN_ARCHS[(i // 10) % 4]) for i in range(DESIGN_LM_QUERIES)]
+
+
+def chaos_queries(n: int, optimize_every: int) -> list:
+    """bench_serving.py's ``_queries`` (lstm and merge_sort at (1, 32)), the
+    optimize queries at 6 steps without reports."""
+    from repro_torch.serving import DesignQuery
+
+    loads = ("lstm", "merge_sort")
+    return [DesignQuery(i, "optimize", loads[i % 2], params=dict(steps=6, report=False))
+            if optimize_every and i and i % optimize_every == 0
+            else DesignQuery(i, ("simulate", "explain")[i % 2], loads[(i // 2) % 2]) for i in range(n)]
+
+
+def reply_ms(replies) -> tuple[float, float]:
+    import numpy as np
+
+    walls = np.asarray([r.wall_s for r in replies if r.ok], np.float64) * 1e3
+    return float(np.percentile(walls, 50)), float(np.percentile(walls, 99))
+
+
+def check_answered(replies, queries, what: str) -> None:
+    """Isolation and availability: one reply a query, in order, each ok (an
+    answer after its deadline is not ok)."""
+    check([r.qid for r in replies] == [q.qid for q in queries], f"{what}: replies out of order or missing")
+    bad = [(r.qid, r.error.to_json()) for r in replies if not r.ok]
+    check(not bad, f"{what}: {len(bad)} queries not answered ok, first {bad[:3]}")
+
+
+def phase_design_service(device, smi: str) -> None:
+    """bench_serving.py's design stream (1,200 queries at (1, 32)) and 80 LM
+    cell queries at (1, 1024), through DesignService one query at a time and
+    through BatchingDesignService by enqueue and flush, both pinned to the
+    request bucket 16: every query ok, batched replies equal to sequential
+    ones as to_json text, sampled sequential replies equal to
+    Session.simulate_batch alone; qps, p50/p99 reply ms, batches printed."""
+    from repro_torch.api import Session
+    from repro_torch.serving import BatchingDesignService, DesignService, FlushPolicy, RetryPolicy
+
+    streams = {"bench (1, 32)": design_queries(DESIGN_QUERIES),
+               "LM cells (1, 1024)": lm_design_queries(device, DESIGN_QUERIES)}
+    seq = DesignService("base", request_bucket=DESIGN_BUCKET, retry=RetryPolicy(max_attempts=4, base_s=0.005),
+                        device=device)
+    bat = BatchingDesignService("base", policy=FlushPolicy(max_batch=DESIGN_BUCKET, max_delay_s=0.005),
+                                retry=RetryPolicy(max_attempts=4, base_s=0.005), device=device)
+    for name, queries in streams.items():
+        t0 = time.perf_counter()
+        seq_replies = seq.serve(queries)
+        seq_wall = time.perf_counter() - t0
+        b0 = bat.stats
+        t0 = time.perf_counter()
+        bat_replies = []
+        for q in queries:
+            bat_replies.extend(bat.enqueue(q))
+        bat_replies.extend(bat.flush())
+        bat_wall = time.perf_counter() - t0
+        b1 = bat.stats
+        check_answered(seq_replies, queries, f"design sequential {name}")
+        check_answered(bat_replies, queries, f"design batched {name}")
+        differ = [r.qid for r, b in zip(seq_replies, bat_replies) if r.result.to_json() != b.result.to_json()]
+        check(not differ, f"design {name}: {len(differ)} batched replies differ from sequential, first {differ[:8]}")
+        batches = b1.batches - b0.batches
+        mean = (b1.batched_queries - b0.batched_queries) / max(batches, 1)
+        (s50, s99), (b50, b99) = reply_ms(seq_replies), reply_ms(bat_replies)
+        n = len(queries)
+        print(f"  design {name}: {n} queries, all ok, batched replies equal to sequential as to_json text; "
+              f"sequential {n / seq_wall:.1f} queries/s (p50 {s50:.3f} ms, p99 {s99:.3f} ms), batched "
+              f"{n / bat_wall:.1f} queries/s (p50 {b50:.3f} ms, p99 {b99:.3f} ms, queue wait included), ratio "
+              f"{seq_wall / bat_wall:.2f}; {batches} batches, mean batch {mean:.2f}; on {smi}")
+    sess = Session("base", device=device)
+    bench, lm = streams["bench (1, 32)"], streams["LM cells (1, 1024)"]
+    for q in (bench[0], bench[17], bench[len(bench) - 8], lm[0], lm[len(lm) - 1]):
+        call = getattr(sess, f"{q.kind}_batch")
+        alone = call([q.workload], architectures=[q.architecture], request_bucket=DESIGN_BUCKET)[0]
+        got = seq.replies[[r.qid for r in seq.replies].index(q.qid)].result
+        check(got.to_json() == alone.to_json(), f"design q{q.qid}: the reply differs from {q.kind}_batch alone")
+    print(f"  design: sampled replies equal to Session.simulate_batch / explain_batch alone at "
+          f"request_bucket={DESIGN_BUCKET}; "
+          f"sequential {seq.stats.programs} programs, {seq.stats.traces} builds, stragglers "
+          f"{len(seq.stats.stragglers)}; batched {len(bat.stats.stragglers)}")
+
+
+def phase_design_chaos(device) -> None:
+    """bench_serving.py's four chaos gates on the batched service, the
+    schedules held against the reference's (tests/data/torch_chaos_schedule.json)."""
+    from repro_torch.serving import BatchingDesignService, ChaosConfig, ChaosInjector, FlushPolicy, RetryPolicy
+
+    ref = json.loads(CHAOS_FIXTURE.read_text())
+    for name, plans in ref["schedules"].items():
+        mine = [p.to_json() for p in ChaosInjector(ChaosConfig(**ref["configs"][name])).schedule(range(CHAOS_QUERIES))]
+        check(mine == plans[:CHAOS_QUERIES], f"design chaos: the {name} schedule differs from the reference's")
+    check(ref["configs"]["transient_only"] == CHAOS_TRANSIENT and ref["configs"]["full"] == CHAOS_FULL,
+          "design chaos: the fixture's configurations are not the bench's")
+    queries = chaos_queries(CHAOS_QUERIES, optimize_every=24)
+
+    def serve(cfg=None):
+        inj = None if cfg is None else ChaosInjector(ChaosConfig(**cfg))
+        svc = BatchingDesignService("base", policy=FlushPolicy(max_batch=DESIGN_BUCKET, max_delay_s=0.005),
+                                    chaos=inj, retry=RetryPolicy(max_attempts=4, base_s=0.005), device=device)
+        t0 = time.perf_counter()
+        replies = svc.serve(queries)
+        return svc, replies, inj, time.perf_counter() - t0
+
+    def texts(replies):
+        return {r.qid: r.result.to_json() for r in replies if r.ok}
+
+    svc0, replies0, _, wall0 = serve()  # 1. isolation, and the bit-identity oracle
+    check_answered(replies0, queries, "design chaos, clean")
+    svc_t, replies_t, inj_t, wall_t = serve(CHAOS_TRANSIENT)  # 2. transient-only: availability exactly 1.0
+    check(len(replies_t) == len(queries) and svc_t.stats.availability == 1.0,
+          f"design chaos: transient-only availability {svc_t.stats.availability} != 1.0")
+    svc_f, replies_f, inj_f, wall_f = serve(CHAOS_FULL)  # 3. full: clean queries bit-identical
+    clean = [p.qid for p in inj_f.schedule(range(CHAOS_QUERIES)) if p.clean]
+    base, full = texts(replies0), texts(replies_f)
+    differ = [q for q in clean if q in full and full[q] != base[q]]
+    check(len(replies_f) == len(queries) and not differ,
+          f"design chaos: {len(differ)} clean replies differ from the no-chaos run, first {differ[:8]}")
+    check(svc_f.stats.availability >= 0.99, f"design chaos: full availability {svc_f.stats.availability} < 0.99")
+    svc_r, replies_r, inj_r, _ = serve(CHAOS_FULL)  # 4. replay
+    outcome = lambda rs: [(r.qid, r.ok, r.error.code if r.error else None) for r in rs]  # noqa: E731
+    check([p.to_json() for p in inj_r.schedule(range(CHAOS_QUERIES))]
+          == [p.to_json() for p in inj_f.schedule(range(CHAOS_QUERIES))]
+          and outcome(replies_r) == outcome(replies_f) and texts(replies_r) == full,
+          "design chaos: the seeded replay diverged (schedule, outcomes or results)")
+    for what, svc, replies, inj, wall in (("clean", svc0, replies0, None, wall0),
+                                          ("transient-only", svc_t, replies_t, inj_t, wall_t),
+                                          ("full", svc_f, replies_f, inj_f, wall_f)):
+        st = svc.stats
+        p50, p99 = reply_ms(replies)
+        print(f"  design chaos {what}: availability {st.availability}, retries {st.retries}, errors {st.errors}, "
+              f"deadline misses {st.deadline_misses}, batches {st.batches}, p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+              f"wall {wall:.3f} s" + (f", injected {inj.summary()}" if inj else ""))
+    print(f"  design chaos: schedules equal to the reference's fixture; {len(clean)} clean queries of "
+          f"{CHAOS_QUERIES} bit-identical to the no-chaos run; the replay identical")
+
+
+RESTART_CHILD = r"""
+import json, sys, time
+from repro_torch.api import Workload
+from repro_torch.core import instrument
+from repro_torch.serving import DesignQuery, DesignService
+from repro_torch.workloads import lm_cell
+
+t0 = time.perf_counter()
+svc = DesignService("base", cache_dir=sys.argv[1], request_bucket=int(sys.argv[3]), device=sys.argv[6])
+construct_s = time.perf_counter() - t0
+dev = svc.session.device
+a, s = sys.argv[4].split(":")
+lm = Workload(lm_cell(a, s, device=dev).pad_to(1024), labels=(sys.argv[4],), device=dev)
+info = svc.warmup(["lstm", lm], kinds=("simulate", "explain")) if sys.argv[2] == "warmup" else None
+before = instrument.snapshot()
+qs = [DesignQuery(i, ("simulate", "explain")[i % 2], ("lstm", lm)[(i // 2) % 2]) for i in range(int(sys.argv[5]))]
+t1 = time.perf_counter()
+replies = svc.serve(qs)
+serve_s = time.perf_counter() - t1
+sim, expl = svc.session.simulate("lstm").to_json(), svc.session.explain("lstm").to_json()
+after = instrument.snapshot()
+print(json.dumps(dict(
+    info=info, disk_loaded=svc.session.disk_loaded, misses=svc.stats.misses, construct_s=construct_s,
+    serve_s=serve_s, built={k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)},
+    replies=[r.result.to_json() if r.ok else None for r in replies], deadline0=replies[0].deadline_s,
+    warm_s=svc.deadlines.warm_s, sim=sim, expl=expl,
+    foreign=sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))))
+"""
+
+
+def phase_design_restart(device) -> None:
+    """Two fresh processes over one temporary cache_dir: the first warms up
+    lstm and an LM cell and serves 8 queries, the second serves the same 8
+    after construction alone: zero builds after construction, no misses,
+    disk_loaded equal to the first's persisted, replies equal as to_json
+    text, its first query predicted warm."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    lm = "%s:%s" % LM[0]
+    with tempfile.TemporaryDirectory(prefix="dragon-design-cache-") as d:
+        runs = []
+        for mode in ("warmup", "restart"):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", RESTART_CHILD, d, mode, str(DESIGN_BUCKET), lm,
+                                  str(RESTART_QUERIES), str(device)], capture_output=True, text=True, env=env,
+                                 timeout=300)
+            check(out.returncode == 0, f"design restart ({mode}) failed:\n{out.stderr[-4000:]}")
+            runs.append(dict(json.loads(out.stdout.strip().splitlines()[-1]), wall_s=time.perf_counter() - t0))
+        records = len([n for n in os.listdir(d) if n.endswith(".pkey")])
+    pre, post = runs
+    check(pre["foreign"] == post["foreign"] == [], f"design restart: imported {pre['foreign'] + post['foreign']}")
+    check(all(pre["replies"]) and all(post["replies"]), "design restart: a query was not answered ok")
+    check(post["built"] == {} and post["misses"] == 0,
+          f"design restart: built {post['built']} and missed {post['misses']} after construction")
+    check(post["disk_loaded"] == pre["info"]["persisted"] == records > 0,
+          f"design restart: disk_loaded {post['disk_loaded']}, persisted {pre['info']['persisted']}, "
+          f"records {records}")
+    check(post["replies"] == pre["replies"] and (post["sim"], post["expl"]) == (pre["sim"], pre["expl"]),
+          "design restart: the restarted replies differ from the first process's")
+    check(post["deadline0"] == post["warm_s"], f"design restart: first query's deadline {post['deadline0']} s "
+                                               f"is not the warm budget {post['warm_s']} s")
+    print(f"  design restart: warmup {pre['info']}; restarted process rehydrated {post['disk_loaded']} programs "
+          f"in construction ({post['construct_s']:.3f} s, first process {pre['construct_s']:.3f} s), then served "
+          f"{RESTART_QUERIES} queries ({post['serve_s']:.3f} s; first process {pre['serve_s']:.3f} s) and "
+          "Session.simulate/explain with 0 builds and 0 misses, replies equal as to_json text, first query "
+          f"warm; process walls {pre['wall_s']:.1f} s and {post['wall_s']:.1f} s")
+
+
+def phase_design(device, smi: str) -> None:
+    t0 = time.perf_counter()
+    phase_design_service(device, smi)
+    phase_design_chaos(device)
+    phase_design_restart(device)
+    print(f"  design path wall {time.perf_counter() - t0:.1f} s")
+
+
 SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
 DSE_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
+DESIGN_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
 AGREE_KERNELS = ("flash_attention",)  # float32 attention
@@ -1727,6 +2003,8 @@ def main() -> int:
         launches[k] += n  # the simulator path's and the DSE path's launches of K1
     for k, n in drive("session", [lambda: phase_session(device, smi, dse)], SESSION_KERNELS).items():
         launches[k] += n  # and the session path's
+    for k, n in drive("design", [lambda: phase_design(device, smi)], DESIGN_KERNELS).items():
+        launches[k] += n  # and the design path's
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
     zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers

@@ -51,7 +51,10 @@ misses / builds (the ``traces`` field), counted by
 :mod:`repro_torch.core.instrument`, where a build is counted where it
 happens.
 
-Not ported yet: ``Session(cache_dir=...)``, the persistent program cache.
+``Session(cache_dir=...)`` makes the cache persistent: :meth:`Session.preheat`
+writes each program's key to disk (:mod:`repro_torch.serving.aotcache`), and
+a new session on that directory rehydrates every program at construction, so
+its first query of a preheated shape builds nothing.
 """
 from __future__ import annotations
 
@@ -419,6 +422,13 @@ def _param_names() -> list[str]:
     return [f"tech.{n}" for n in tech_param_names()] + [f"arch.{n}" for n in _arch_param_names()]
 
 
+def _request_axis(args: tuple, nb: int) -> tuple:
+    """A program's ``(tech, arch, gstack)`` example arguments repeated along
+    a leading request axis of ``nb`` — the batched programs' shapes."""
+    tech, arch, gstack = args
+    return stack_trees([tech] * nb), stack_trees([arch] * nb), Graph.stack([gstack] * nb)
+
+
 def _flatten(*trees) -> np.ndarray:
     """The trees' leaves, concatenated in order, in one copy to the host."""
     return torch.cat([t.flatten() for t in trees]).detach().cpu().numpy()
@@ -481,19 +491,24 @@ class Session:
     the session that built it).
 
     ``device`` is the card unless the caller names another; every tensor the
-    session makes lives there.  ``cache_dir`` (a persistent program cache)
-    is not ported yet and raises ``NotImplementedError``.
+    session makes lives there.
+
+    ``cache_dir`` makes the cache *persistent*: :meth:`preheat` records each
+    program's key on disk (:class:`repro_torch.serving.aotcache.AotCache`,
+    under this runtime's fingerprint), and construction rehydrates every
+    record that matches this runtime into :attr:`programs` — the program
+    rebuilt through the same spec function ``preheat`` uses and run once on
+    example arguments of its bucket (on the card that loads the kernel
+    libraries and the spec's arrays).  A restarted process serves its first
+    query of a preheated shape with zero builds; :attr:`disk_loaded` reports
+    how many programs arrived that way.  A rehydrated program counts in
+    neither ``misses`` nor ``traces``.
     """
 
     _ids = itertools.count()
 
     def __init__(self, architecture="base", *, mcfg: MapperCfg = MapperCfg(),
                  programs: dict | None = None, cache_dir=None, device=None):
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "Session(cache_dir=...) is not ported yet: the persistent program cache comes with the "
-                "design-serving tier (ROADMAP.md, queue 1 item 4)"
-            )
         self.device = _device(device)
         self.architecture = self._arch_on_device(architecture)
         self.mcfg = mcfg
@@ -508,6 +523,27 @@ class Session:
         # the pooled serving tier dispatches chunks from worker threads that
         # share one session; cache lookups and build bookkeeping stay atomic
         self._plock = threading.RLock()
+        self._aot = None
+        self.disk_loaded = 0  # programs rehydrated from cache_dir at construction
+        if cache_dir is not None:
+            # deferred: the serving package (and its fault taxonomy) only
+            # loads for sessions that opt into persistence
+            from repro_torch.serving.aotcache import AotCache
+
+            self._aot = AotCache(cache_dir, device=self.device)
+            for key in self._aot.load_all():
+                if key in self._programs:
+                    continue
+                try:
+                    fn, args = self._rehydrate(key)
+                except (TypeError, ValueError):
+                    self._aot.reject(key)  # verified, but names no program of this session
+                    continue
+                fn(*args)
+                self._programs[key] = fn
+                self.disk_loaded += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     @property
     def programs(self) -> dict:
@@ -585,10 +621,12 @@ class Session:
 
     # ------------------------------------------------------------ programs --
     # Each served program kind is declared as a *spec* — ``(cache key,
-    # build)`` — so the first-call path (``_program``) and ``preheat``
-    # share one definition.  ``build()`` counts the build and returns the
-    # closure; the closure's first call copies the spec's arrays to the
-    # device (``dgen.specialize``, counted as ``dgen.spec_arrays``).
+    # build)`` — so the first-call path (``_program``), ``preheat`` and the
+    # rehydration from ``cache_dir`` share one definition.  ``build()``
+    # counts the build and returns the closure (``build.program``, which
+    # rehydration takes without counting); the closure's first call copies
+    # the spec's arrays to the device (``dgen.specialize``, counted as
+    # ``dgen.spec_arrays``).
 
     def _make_build(self, kind: str, fn):
         tag = f"{self._tag}.{kind}"
@@ -597,7 +635,47 @@ class Session:
             instrument.count_trace(tag)
             return fn
 
+        build.program = fn
         return build
+
+    def _spec_of(self, key: tuple):
+        """The ``(key, build)`` spec that makes the program of ``key``.
+        Raises ``ValueError`` or ``TypeError`` for a key this session's
+        program kinds cannot make."""
+        kind, spec, mcfg, bucket, *rest = key
+        if not isinstance(spec, ArchSpec) or not isinstance(mcfg, MapperCfg):
+            raise TypeError(f"program key {key!r} holds no ArchSpec and MapperCfg")
+        bucket = tuple(bucket)
+        if kind == "simulate" and not rest:
+            made = self._perf_spec(bucket, spec, mcfg)
+        elif kind == "report" and not rest:
+            made = self._report_spec(bucket, spec, mcfg)
+        elif kind == "explain" and len(rest) == 1:
+            made = self._explain_spec(bucket, spec, mcfg, rest[0])
+        elif kind == "report_batched" and len(rest) == 1:
+            made = self._batched_report_spec(int(rest[0]), bucket, spec, mcfg)
+        elif kind == "explain_batched" and len(rest) == 2:
+            made = self._batched_explain_spec(int(rest[1]), bucket, spec, mcfg, rest[0])
+        else:
+            raise ValueError(f"no program kind makes the key {key!r}")
+        if made[0] != key:
+            raise ValueError(f"program key {key!r} is not canonical (made {made[0]!r})")
+        return made
+
+    def _rehydrate(self, key: tuple):
+        """``(program, example arguments)`` for a key read back from
+        ``cache_dir``: the spec's closure, taken without counting a build,
+        and a zero-filled stack of the key's bucket under a design of the
+        key's spec (the session's architecture where the spec is its own)."""
+        _, build = self._spec_of(key)
+        kind, spec, _, bucket = key[:4]
+        _, gstack = self._bucket_stack(bucket)
+        a = self.architecture if self.architecture.spec == spec else Architecture(
+            None, spec=spec, device=self.device)
+        args = (a.tech, a.arch, gstack)
+        if kind in ("report_batched", "explain_batched"):
+            args = _request_axis(args, int(key[-1]))
+        return build.program, args
 
     def _perf_spec(self, bucket, spec: ArchSpec, mcfg: MapperCfg):
         """simulate_stacked — bit for bit the engine call it wraps."""
@@ -724,10 +802,11 @@ class Session:
         ``request_buckets`` additionally builds the batched-dispatch
         variants at those pinned request axes.
 
-        Each program is built and run once on example arguments.  Returns a
-        summary dict: ``programs`` touched, ``built`` (built now),
-        ``reused`` (already warm), ``persisted`` (always 0: there is no
-        persistent cache yet), ``seconds``.
+        Each program is built and run once on example arguments and, when
+        the session has a ``cache_dir``, its key is persisted there.  Returns
+        a summary dict: ``programs`` touched, ``built`` (built now),
+        ``reused`` (already warm, or rehydrated from a record another process
+        wrote since construction), ``persisted`` (new records), ``seconds``.
         """
         a = self._arch(architecture)
         spec, mcfg = a.spec, self.mcfg
@@ -744,7 +823,7 @@ class Session:
                 f"preheat kinds {sorted(unknown)} not in ('perf', 'simulate', 'explain')"
             )
         t0 = time.perf_counter()
-        built = reused = 0
+        built = reused = persisted = 0
         seen: set = set()
         for item in workloads:
             bucket, gstack = self._bucket_stack(item)
@@ -762,7 +841,7 @@ class Session:
                     jobs.append((self._explain_spec(bucket, spec, mcfg, obj), args))
             for nb in request_buckets:
                 nb = int(nb)
-                bargs = (stack_trees([a.tech] * nb), stack_trees([a.arch] * nb), Graph.stack([gstack] * nb))
+                bargs = _request_axis(args, nb)
                 if "simulate" in kinds or "explain" in kinds:
                     jobs.append((self._batched_report_spec(nb, bucket, spec, mcfg), bargs))
                 if "explain" in kinds:
@@ -770,24 +849,41 @@ class Session:
                         jobs.append(
                             (self._batched_explain_spec(nb, bucket, spec, mcfg, obj), bargs)
                         )
-            # a new program runs once on its example arguments: on the card
-            # that loads the kernel libraries and sets up the library handles
-            # and the allocator's pools ahead of the first query
             for (key, build), eargs in jobs:
-                fn, was_built = self._program(key, build)
-                if was_built:
-                    fn(*eargs)
+                was_built, was_persisted = self._preheat_one(key, build, eargs)
                 built += was_built
                 reused += not was_built
+                persisted += was_persisted
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return dict(
             programs=built + reused,
             built=built,
             reused=reused,
-            persisted=0,
+            persisted=persisted,
             seconds=round(time.perf_counter() - t0, 3),
         )
+
+    def _preheat_one(self, key, build, args) -> tuple[bool, bool]:
+        """Ensure one program is built, run once and persisted.
+
+        Returns ``(built, persisted)``.  An in-memory program is reused; a
+        record on disk that arrived after construction is rehydrated (a hit,
+        no build); otherwise the program is built.  A new program runs once
+        on its example arguments: on the card that loads the kernel
+        libraries and sets up the library handles and the allocator's pools
+        ahead of the first query.
+        """
+        with self._plock:
+            fresh = (key not in self._programs and self._aot is not None
+                     and self._aot.get(key) is not None)
+            if fresh:
+                self._programs[key] = build.program
+        fn, built = self._program(key, build)
+        if built or fresh:
+            fn(*args)
+        persisted = self._aot is not None and self._aot.put(key)
+        return built, persisted
 
     def _assemble_batch(self, workloads, architectures, request_bucket=None):
         """Validate + stack a request batch: every item must share the

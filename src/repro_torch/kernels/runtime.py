@@ -15,6 +15,9 @@ This is the one module of ``repro_torch`` that compiles or loads CUDA code.
     kernels expose a plain C interface and are bound with ``ctypes``: no
     PyTorch header is compiled, so a cold build takes seconds, not minutes.
     A build or launch failure raises; nothing falls back to a plain version.
+  * :func:`executable_fingerprint` — the runtime a persisted program key is
+    valid under (torch, CUDA, the card's arch and every kernel library's
+    key), for the design service's program cache.
   * :data:`LAUNCHES` / :func:`reset_launches` — one count per kernel, bumped
     by its wrapper exactly where it launches the kernel.  ``affine_scan.cu``
     holds three kernels: the bare affine scan and the mapper's two carries,
@@ -140,6 +143,36 @@ def _target(name: str, nvcc_version: str) -> pathlib.Path:
     for part in (torch.__version__, nvcc_version, " ".join(flags(name))):
         h.update(part.encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+_FINGERPRINTS: dict[str, str] = {}
+
+
+def executable_fingerprint(device=None) -> str:
+    """The runtime identity a persisted program key is only valid under.
+
+    The persistent program cache (:mod:`repro_torch.serving.aotcache`) folds
+    this string into every record's digest, so a record written under
+    another runtime misses cleanly instead of being rebuilt against it.  On
+    the card it names the torch version, ``torch.version.cuda``, the card's
+    compute capability and every kernel library as :func:`_target` keys it
+    (a digest of the source, torch, ``nvcc`` and the flags): a record
+    written under other kernel sources misses.  On the CPU it names torch
+    and the device type, and runs no ``nvcc``.
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return f"torch={torch.__version__}|device={dev.type}"
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = f"cuda:{idx}"
+    with _LOCK:
+        if key not in _FINGERPRINTS:
+            major, minor = torch.cuda.get_device_capability(idx)
+            ver = _nvcc_version(nvcc_path())
+            libs = ",".join(_target(name, ver).stem for name in SOURCES)
+            _FINGERPRINTS[key] = (f"torch={torch.__version__}|cuda={torch.version.cuda}|"
+                                  f"sm_{major}{minor}|kernels={libs}")
+        return _FINGERPRINTS[key]
 
 
 def build_all() -> dict[str, pathlib.Path]:

@@ -45,9 +45,10 @@ def test_affine_scan_kernel_matches_plain(cuda, R, V):
 # rows of several tiles (1,024 elements a tile), rows clamping often, and the
 # DSE path's populations, P·W rows: [96, 109]
 # (32 members x 3 workloads at the bench configuration) and [5120, 1024]
-# (1,024 members on the LM stack)
+# (1,024 members on the LM stack), and the design service's, one row a query
+# at its pinned request bucket of 16: [16, 32] and [16, 1024]
 _CARRY_SHAPES = [(1, 1), (3, 33), (16, 707), (5, 1024), (11, 256), (1, 32), (1, 1024), (2, 4096), (3, 2500),
-                 (96, 109), (5120, 1024)]
+                 (96, 109), (5120, 1024), (16, 32), (16, 1024)]
 
 
 def _carries_decays():
