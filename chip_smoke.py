@@ -101,6 +101,25 @@ Phases (each raises on failure, so any failure exits non-zero):
       them after construction alone with zero builds and zero misses,
       disk_loaded equal to the first's persisted, replies equal as to_json
       text and its first query predicted warm;
+   then the pool path (the tier past one thread and one process), with the
+   launch counts set to 0 just before and read just after (K1 forward and
+   backward must run in this process), on the same two streams, its replies
+   held as to_json text against the design path's sequential ones:
+   a. staged assembly: on one bench chunk and one LM chunk of 16 every
+      staged leaf equal to ``Session._assemble_batch``'s (torch.equal, dtype,
+      shape, strides), the host time of each printed; then
+      ``StagedBatchingService`` by enqueue and flush, timed in turns with a
+      ``BatchingDesignService`` (batched, staged, staged, batched), whose
+      mean is the yardstick of every tier's ratio below;
+   b. ``PooledDesignService(workers=2)``: every query ok, K1 launched;
+   c. ``MultiProcessDesignService(workers=2)`` over a cache_dir that a
+      parent ``BatchingDesignService.warmup`` preheated (lstm, merge_sort,
+      gcn, stencil2d and the LM cells): the fleet builds nothing
+      (``stats.traces == 0``), its time from ``start()`` to ready printed;
+   d. worker-kill chaos (seed 20260808, p_worker_kill 0.1, as
+      bench_serving.py has it): kills >= 1, requeues >= 1, every query ok;
+   queries/s, p50/p99 reply ms and each tier's ratio to the batched service
+   printed beside bench_serving.py's 1.5x floor (a finding, not a gate);
 8. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
    (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
@@ -1752,18 +1771,21 @@ def check_answered(replies, queries, what: str) -> None:
     check(not bad, f"{what}: {len(bad)} queries not answered ok, first {bad[:3]}")
 
 
-def phase_design_service(device, smi: str) -> None:
+def phase_design_service(device, smi: str) -> dict:
     """bench_serving.py's design stream (1,200 queries at (1, 32)) and 80 LM
     cell queries at (1, 1024), through DesignService one query at a time and
     through BatchingDesignService by enqueue and flush, both pinned to the
     request bucket 16: every query ok, batched replies equal to sequential
     ones as to_json text, sampled sequential replies equal to
-    Session.simulate_batch alone; qps, p50/p99 reply ms, batches printed."""
+    Session.simulate_batch alone; qps, p50/p99 reply ms, batches printed.
+    Returns the streams, the sequential replies as to_json text and the
+    batched queries/s, the pool path's yardsticks."""
     from repro_torch.api import Session
     from repro_torch.serving import BatchingDesignService, DesignService, FlushPolicy, RetryPolicy
 
     streams = {"bench (1, 32)": design_queries(DESIGN_QUERIES),
                "LM cells (1, 1024)": lm_design_queries(device, DESIGN_QUERIES)}
+    keep = {"streams": streams, "sequential": {}, "batched_qps": {}}
     seq = DesignService("base", request_bucket=DESIGN_BUCKET, retry=RetryPolicy(max_attempts=4, base_s=0.005),
                         device=device)
     bat = BatchingDesignService("base", policy=FlushPolicy(max_batch=DESIGN_BUCKET, max_delay_s=0.005),
@@ -1788,6 +1810,8 @@ def phase_design_service(device, smi: str) -> None:
         mean = (b1.batched_queries - b0.batched_queries) / max(batches, 1)
         (s50, s99), (b50, b99) = reply_ms(seq_replies), reply_ms(bat_replies)
         n = len(queries)
+        keep["sequential"][name] = [r.result.to_json() for r in seq_replies]
+        keep["batched_qps"][name] = n / bat_wall
         print(f"  design {name}: {n} queries, all ok, batched replies equal to sequential as to_json text; "
               f"sequential {n / seq_wall:.1f} queries/s (p50 {s50:.3f} ms, p99 {s99:.3f} ms), batched "
               f"{n / bat_wall:.1f} queries/s (p50 {b50:.3f} ms, p99 {b99:.3f} ms, queue wait included), ratio "
@@ -1803,6 +1827,7 @@ def phase_design_service(device, smi: str) -> None:
           f"request_bucket={DESIGN_BUCKET}; "
           f"sequential {seq.stats.programs} programs, {seq.stats.traces} builds, stragglers "
           f"{len(seq.stats.stragglers)}; batched {len(bat.stats.stragglers)}")
+    return keep
 
 
 def phase_design_chaos(device) -> None:
@@ -1929,12 +1954,206 @@ def phase_design_restart(device) -> None:
           f"warm; process walls {pre['wall_s']:.1f} s and {post['wall_s']:.1f} s")
 
 
-def phase_design(device, smi: str) -> None:
+def phase_design(device, smi: str) -> dict:
     t0 = time.perf_counter()
-    phase_design_service(device, smi)
+    keep = phase_design_service(device, smi)
     phase_design_chaos(device)
     phase_design_restart(device)
     print(f"  design path wall {time.perf_counter() - t0:.1f} s")
+    return keep
+
+
+# --------------------------------------------------------------------------- #
+# the pool path: the design-serving tier past one thread and one process
+# --------------------------------------------------------------------------- #
+
+POOL_WORKERS = 2  # bench_serving.py's _pool_bench: two pool threads, two worker processes
+POOL_FLOOR = 1.5  # its floor for the pooled and multi-process tiers against the batched service
+POOL_KILL = dict(seed=DESIGN_SEED, p_worker_kill=0.1)  # its worker-kill chaos
+POOL_WARM = ("lstm", "merge_sort", "gcn", "stencil2d")  # its parent's warmup, and the LM cells
+
+
+def pool_kw() -> dict:
+    """The batched service's settings (phase_design_service)."""
+    from repro_torch.serving import FlushPolicy, RetryPolicy
+
+    return dict(policy=FlushPolicy(max_batch=DESIGN_BUCKET, max_delay_s=0.005),
+                retry=RetryPolicy(max_attempts=4, base_s=0.005))
+
+
+def check_sequential(replies, queries, want: list, what: str) -> None:
+    check_answered(replies, queries, what)
+    differ = [r.qid for r, w in zip(replies, want) if r.result.to_json() != w]
+    check(not differ, f"{what}: {len(differ)} replies differ from sequential, first {differ[:8]}")
+
+
+def tier_line(what: str, replies, wall: float, batched_qps: float, smi: str) -> float:
+    n = len(replies)
+    p50, p99 = reply_ms(replies)
+    ratio = n / wall / batched_qps
+    print(f"  pool {what}: {n} queries, all ok, replies equal to sequential as to_json text; {n / wall:.1f} "
+          f"queries/s (p50 {p50:.3f} ms, p99 {p99:.3f} ms, queue wait included), {ratio:.2f}x the batched "
+          f"service ({batched_qps:.1f} queries/s; bench_serving.py's floor {POOL_FLOOR}x: "
+          f"{'reached' if ratio > POOL_FLOOR else 'not reached'}, a finding, not a gate); on {smi}")
+    return ratio
+
+
+def staged_leaves(svc, queries) -> tuple[float, float]:
+    """One chunk of DESIGN_BUCKET queries: every staged leaf equal to
+    Session._assemble_batch's in values, dtype, shape and strides; returns
+    the median host ms of each (to the end of the copies, synchronized)."""
+    import torch
+
+    sess = svc.session
+    ws = [sess._workload(q.workload) for q in queries[:DESIGN_BUCKET]]
+    archs = [sess._arch(q.architecture) for q in queries[:DESIGN_BUCKET]]
+    _, _, _, (techs, arch_ps, g) = sess._assemble_batch(ws, archs, DESIGN_BUCKET)
+    st, sa, sg = svc._assembler.stage(ws, archs)
+    fields = ("n_comp", "n_read", "n_write", "n_alloc", "dims", "op_kind", "edges")
+    want = techs.leaves() + arch_ps.leaves() + [getattr(g, f) for f in fields]
+    got = st.leaves() + sa.leaves() + [getattr(sg, f) for f in fields]
+    check(len(want) == len(got) and sg.names == g.names, "pool staged: the staged trees differ in structure")
+    for i, (x, y) in enumerate(zip(want, got)):
+        check((x.dtype, x.shape, x.stride(), x.device) == (y.dtype, y.shape, y.stride(), y.device)
+              and y.is_contiguous() and torch.equal(x, y), f"pool staged: leaf {i} differs from _assemble_batch's")
+
+    def host_ms(fn) -> float:
+        times = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return (host_ms(lambda: svc._assembler.stage(ws, archs)),
+            host_ms(lambda: sess._assemble_batch(ws, archs, DESIGN_BUCKET)))
+
+
+def frame_costs(streams: dict, replies: dict) -> None:
+    """What one chunk costs on the wire: a frame of DESIGN_BUCKET queries of
+    one kind, and the reply frame of their answers, each encoded and decoded
+    in this process (host ms, median of 5) with its size."""
+    import pickle
+
+    from repro_torch.serving import protocol
+
+    for name, queries in streams.items():
+        for kind in ("simulate", "explain"):
+            qs = [q for q in queries if q.kind == kind][:DESIGN_BUCKET]
+            rs = [r for r in replies[name] if r.kind == kind][:DESIGN_BUCKET]
+            parts = []
+            for what, tag, payload in (("queries", "chunk", (0, qs)), ("replies", "replies", (0, rs, None))):
+                enc, dec = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    frame = protocol.encode_frame(tag, payload)
+                    t1 = time.perf_counter()
+                    pickle.loads(frame[8:])
+                    dec.append(time.perf_counter() - t1)
+                    enc.append(t1 - t0)
+                parts.append(f"{what} {len(frame) / 1e3:.1f} kB, encode {statistics.median(enc) * 1e3:.3f} ms, "
+                             f"decode {statistics.median(dec) * 1e3:.3f} ms")
+            print(f"  pool frames {name} {kind}, a chunk of {len(qs)}: " + "; ".join(parts))
+
+
+def phase_pool(device, smi: str, keep: dict) -> None:
+    import tempfile
+
+    from repro_torch.kernels import runtime
+    from repro_torch.serving import (BatchingDesignService, ChaosConfig, MultiProcessDesignService,
+                                     PooledDesignService, StagedBatchingService)
+
+    t_path = time.perf_counter()
+    streams, want = keep["streams"], keep["sequential"]
+    ratios: dict = {}
+    batched: dict = {}  # queries/s of the batched service timed in turns with the staged one, in this path
+    last_replies: dict = {}  # the staged replies by stream
+    # a. staged assembly, then the staged service against the batched one by
+    # enqueue and flush, in turns (batched, staged, staged, batched)
+    svc = StagedBatchingService("base", device=device, **pool_kw())
+    bat = BatchingDesignService("base", device=device, **pool_kw())
+    for name, queries in streams.items():
+        stage_ms, stack_ms = staged_leaves(svc, queries)
+        print(f"  pool staged {name}: a chunk of {DESIGN_BUCKET}, every staged leaf equal to _assemble_batch's "
+              f"(values, dtype, shape, strides); host {stage_ms:.3f} ms staged against {stack_ms:.3f} ms stacked")
+    for name, queries in streams.items():
+        walls: dict = {"batched": [], "staged": []}
+        last: dict = {}
+        for tier, service in (("batched", bat), ("staged", svc), ("staged", svc), ("batched", bat)):
+            t0 = time.perf_counter()
+            replies = []
+            for q in queries:
+                replies.extend(service.enqueue(q))
+            replies.extend(service.flush())
+            walls[tier].append(time.perf_counter() - t0)
+            check_sequential(replies, queries, want[name], f"pool {tier} {name}")
+            last[tier] = replies
+        batched[name] = len(queries) / statistics.mean(walls["batched"])
+        print(f"  pool batched {name}, in turns with staged: {len(queries) / walls['batched'][0]:.1f} and "
+              f"{len(queries) / walls['batched'][1]:.1f} queries/s (the design path's run: "
+              f"{keep['batched_qps'][name]:.1f}); staged {len(queries) / walls['staged'][0]:.1f} and "
+              f"{len(queries) / walls['staged'][1]:.1f}")
+        ratios[("staged", name)] = tier_line(f"staged {name}", last["staged"], statistics.mean(walls["staged"]),
+                                             batched[name], smi)
+        last_replies[name] = last["staged"]
+    # b. two pool threads over one session, launching on the current stream
+    with PooledDesignService("base", workers=POOL_WORKERS, device=device, **pool_kw()) as pool:
+        for name, queries in streams.items():
+            k0 = runtime.LAUNCHES["mapper_carries"]
+            t0 = time.perf_counter()
+            replies = pool.serve(queries)
+            wall = time.perf_counter() - t0
+            check_sequential(replies, queries, want[name], f"pool pooled {name}")
+            check(runtime.LAUNCHES["mapper_carries"] > k0, f"pool pooled {name}: K1 was not launched")
+            ratios[("pooled", name)] = tier_line(f"pooled {name}", replies, wall, batched[name], smi)
+    # c. two worker processes over a cache_dir a parent preheated; d. a seeded worker kill
+    with tempfile.TemporaryDirectory(prefix="dragon-pool-cache-") as d:
+        parent = BatchingDesignService("base", cache_dir=d, device=device, **pool_kw())
+        info = parent.warmup([*POOL_WARM, *lm_workloads(device)])
+        check(info["persisted"] == 8, f"pool: the parent persisted {info} (want 8 programs)")
+        mp = MultiProcessDesignService("base", workers=POOL_WORKERS, cache_dir=d, device=device, **pool_kw())
+        t0 = time.perf_counter()
+        mp.start()
+        ready_s = time.perf_counter() - t0
+        with mp:
+            check(mp.pool_info["kernels_built"] == 0, f"pool multi-process: workers compiled kernels {mp.pool_info}")
+            print(f"  pool multi-process: parent warmup {info}; {POOL_WORKERS} workers ready {ready_s:.3f} s after "
+                  f"start(), {mp.pool_info['disk_loaded']} programs rehydrated, no kernel compiled (the parent's "
+                  "binaries loaded)")
+            for name, queries in streams.items():
+                t0 = time.perf_counter()
+                replies = mp.serve(queries)
+                wall = time.perf_counter() - t0
+                check_sequential(replies, queries, want[name], f"pool multi-process {name}")
+                check(not any(r.compiled for r in replies), f"pool multi-process {name}: a query built")
+                ratios[("multi-process", name)] = tier_line(f"multi-process {name}", replies, wall, batched[name],
+                                                            smi)
+            st = mp.stats
+        check(st.traces == 0 and st.misses == 0, f"pool multi-process: the fleet built {st.traces} programs, "
+                                                 f"missed {st.misses}")
+        frame_costs(streams, last_replies)
+        print(f"  pool multi-process: fleet ledger {st.queries} queries, {st.ok} ok, {st.traces} builds, "
+              f"{st.hits} hits, {st.misses} misses, {st.batches} batches; {mp.pool_info}")
+        with MultiProcessDesignService("base", workers=POOL_WORKERS, cache_dir=d, device=device,
+                                       chaos=ChaosConfig(**POOL_KILL), **pool_kw()) as mpk:
+            for name, queries in streams.items():
+                t0 = time.perf_counter()
+                replies = mpk.serve(queries)
+                wall = time.perf_counter() - t0
+                check_sequential(replies, queries, want[name], f"pool worker-kill {name}")
+                p50, p99 = reply_ms(replies)
+                print(f"  pool worker-kill {name}: {len(queries)} queries, all ok, replies equal to sequential; "
+                      f"{len(queries) / wall:.1f} queries/s (p50 {p50:.3f} ms, p99 {p99:.3f} ms)")
+            kinfo = mpk.pool_info
+        check(kinfo["kills"] >= 1 and kinfo["requeues"] >= 1,
+              f"pool worker-kill: kills {kinfo['kills']}, requeues {kinfo['requeues']} (want >= 1 each)")
+        print(f"  pool worker-kill: {kinfo}, availability 1.0")
+    held = [f"{tier} {name} {r:.2f}x" for (tier, name), r in ratios.items()]
+    print(f"  pool: against the batched service: {', '.join(held)}; the {POOL_FLOOR}x floor "
+          f"reached by {sum(r > POOL_FLOOR for r in ratios.values())} of {len(ratios)}")
+    print(f"  pool path wall {time.perf_counter() - t_path:.1f} s")
 
 
 SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
@@ -2003,8 +2222,11 @@ def main() -> int:
         launches[k] += n  # the simulator path's and the DSE path's launches of K1
     for k, n in drive("session", [lambda: phase_session(device, smi, dse)], SESSION_KERNELS).items():
         launches[k] += n  # and the session path's
-    for k, n in drive("design", [lambda: phase_design(device, smi)], DESIGN_KERNELS).items():
+    design = {}
+    for k, n in drive("design", [lambda: design.update(phase_design(device, smi))], DESIGN_KERNELS).items():
         launches[k] += n  # and the design path's
+    for k, n in drive("pool", [lambda: phase_pool(device, smi, design)], DESIGN_KERNELS).items():
+        launches[k] += n  # and the pool path's (its staged and pooled tiers; workers count their own)
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
     zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers

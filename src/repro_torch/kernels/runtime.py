@@ -70,6 +70,8 @@ BUILD_SECONDS: dict[str, float] = {}  # kernel name -> seconds from the builds' 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# its own lock, not _LOCK: a count must never wait behind a build
+_COUNT_LOCK = threading.Lock()
 
 
 # --------------------------------------------------------------------------- #
@@ -102,12 +104,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    """One launch of kernel ``name``.  Atomic: the pooled design service
+    launches from several threads, and ``+=`` on a dict entry is a read
+    and a write that another thread can interleave."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------------- #
