@@ -25,7 +25,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    time of PyTorch's scaled_dot_product_attention on the same inputs (a
    yardstick the port never calls), the float32-pipe kernel timed at
    [1,32,4096,64] and [1,32,4096,128] in float32 and at kimi-k2's bf16 heads
-   (q [1,64,4096,112], k and v [1,8,4096,112]);
+   (q [1,64,4096,112], k and v [1,8,4096,112]), the tensor-core kernel at the
+   dense families' q [1,32,4096,128] over 8 KV heads; attention also at the
+   transformer families' shapes: the vision model's cross-attention (not
+   causal, 1,601 patches) in prefill and at one query a decode step,
+   llama4-scout's GQA group 5, musicgen's MHA at D 64;
 4. the simulator path, with the launch counts set to 0 just before and read
    just after:
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
@@ -121,17 +125,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    queries/s, p50/p99 reply ms and each tier's ratio to the batched service
    printed beside bench_serving.py's 1.5x floor (a finding, not a gate);
 8. the serving path, with the launch counts set to 0 just before and read
-   just after: zamba2-1.2b and falcon-mamba-7b at full width and depth
-   (bf16 activations, fp32 weights from a seeded torch.Generator on the card),
-   each behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
-   (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each); zamba2's
-   attention must go through the bf16 tensor-core kernel, 6 launches a request;
+   just after: zamba2-1.2b, falcon-mamba-7b, granite-3-8b,
+   llama-3.2-vision-11b and musicgen-large at full width and depth, and
+   llama4-scout-17b-a16e at full width and 4 of its 48 layers (bf16
+   activations, fp32 weights from a seeded torch.Generator on the card), each
+   behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
+   (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each; the kv-cache
+   families prefill them padded to 4096, 1024, 512 and 64; musicgen's are
+   [S, 4] codebook tokens); each model's attention must go through the bf16
+   tensor-core kernel alone, once for every attention layer of a prefill
+   (zamba2: 6 shared blocks) and, for the vision model, once for each of its 8
+   cross layers at every decode step;
 9. the agreement path, with the launch counts set to 0 just before and read
-   just after: the fixture tests/data/torch_ssm_ref.npz (made by
-   tools/make_torch_ssm_ref.py from the JAX models on the same numpy weights)
-   against this package on the card in float32 (prefill logits and 8
-   teacher-forced decode steps), which runs attention through the float32
-   kernel.
+   just after: the fixtures tests/data/torch_ssm_ref.npz and
+   tests/data/torch_lm_ref.npz (made by tools/make_torch_ssm_ref.py and
+   tools/make_torch_lm_ref.py from the JAX models on the same numpy weights:
+   granite-3-8b at 2 layers, llama-3.2-vision-11b at 5 with nonzero cross
+   gates and a seeded vision input, musicgen-large at 2, llama4-scout at 1,
+   all at full width) against this package on the card in float32 (prefill
+   logits and 8 teacher-forced decode steps), which runs attention through
+   the float32 kernel; the transformer fixture's numpy weights are made on a
+   host thread from the start of the run.
 
 The last two lines are a JSON ``kernels`` record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -171,11 +185,17 @@ EXP_FP32_OPS = 14
 K1_SEED, K3_SEED, K4_SEED, K5_SEED = 1, 3, 4, 5
 K4_DRAWS = 8  # float32 draws at 4,096 steps on which K4 is held to the float64 recurrence
 
-SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b")
+SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b", "granite-3-8b", "llama-3.2-vision-11b", "musicgen-large",
+                "llama4-scout-17b-a16e")
+# the one depth cut of the serving path: llama4-scout-17b-a16e at full width
+# (16 experts, d_model 5120) with 4 of its 48 layers, 38.6 GiB of fp32 weights
+# and ~56 GiB at the peak of the bf16 cast; all 48 layers would be 379 GiB
+SERVE_DEPTH = {"llama4-scout-17b-a16e": 4}
 SERVE_PROMPTS = (4096, 1000, 257, 64)  # tokens; two slots, so slots are reused
 SERVE_NEW_TOKENS = 16
 SERVE_MAX_LEN = 4608
 FIXTURE = ROOT / "tests" / "data" / "torch_ssm_ref.npz"
+LM_FIXTURE = ROOT / "tests" / "data" / "torch_lm_ref.npz"  # made by tools/make_torch_lm_ref.py
 # Agreement with the fixture, float32 on both sides, measured as max |logit
 # difference| at the fixture's top-64 indices over the step's largest |logit|.
 # The bound of an entry is AGREE_FACTOR times the reference's own spread (how
@@ -718,9 +738,10 @@ def attention_records(device) -> dict:
     """K3's two kernels against the plain version at the serving path's
     shapes and beyond; records timed at q, k, v [1,32,4096,64], the tensor-core
     kernel in bf16 (the serving path's) and the other in float32 (the
-    agreement path's), and the float32-pipe kernel at [1,32,4096,128] in
+    agreement path's), the float32-pipe kernel at [1,32,4096,128] in
     float32 and at kimi-k2's bf16 heads, q [1,64,4096,112] with k and v
-    [1,8,4096,112]."""
+    [1,8,4096,112], and the tensor-core kernel at q [1,32,4096,128] with k
+    and v [1,8,4096,128] (the dense families' heads)."""
     import torch
     import torch.nn.functional as F
 
@@ -758,17 +779,37 @@ def attention_records(device) -> dict:
               for D in (8, 48, 80, 112, 128, 256) for causal in (True, False)]
     cases += [(randn_k3, 8, 2, 257, 333, D, causal, (bf16,)) for D in (8, 96, 112, 256) for causal in (True, False)]
     cases += [(randn_k3, 8, 2, 300, 200, 128, causal, (f32,)) for causal in (True, False)]
+    cases = [(c[0], 1) + c[1:] for c in cases]  # batch 1
+    # the transformer families' shapes, from a generator of their own: serving
+    # (bf16) at the engine's prompt buckets (4096, 1024, 512, 64) and
+    # agreement (float32) at the fixture's 67-token prompt and its decode steps.
+    # The vision model's cross-attention, not causal, against 1,601 patches (a
+    # prime: a ragged last K/V tile), in prefill and at Sq = 1 in every decode
+    # step (2 slots serving, 1 in agreement); llama4-scout's GQA group 5 (40
+    # query heads over 8); granite's GQA 4 and musicgen's MHA at D 64 at the
+    # buckets the SSM prompts did not give
+    gen_lm = torch.Generator(device.type).manual_seed(K3_SEED + 100)
+    randn_lm = lambda *s: torch.randn(*s, generator=gen_lm, device=device)  # noqa: E731
+    buckets = (4096, 1024, 512, 64)
+    cases += [(randn_lm, 1, 32, 8, S, 1601, 128, False, (bf16,)) for S in buckets]
+    cases += [(randn_lm, 2, 32, 8, 1, 1601, 128, False, (bf16,)), (randn_lm, 1, 32, 8, 1, 1601, 128, False, (f32,)),
+              (randn_lm, 1, 32, 8, 67, 1601, 128, False, (f32,))]
+    cases += [(randn_lm, 1, 40, 8, S, S, 128, True, (bf16,)) for S in buckets]
+    cases += [(randn_lm, 1, 32, 8, S, S, 128, True, (bf16,)) for S in buckets[1:]]
+    cases += [(randn_lm, 1, 32, 32, S, S, 64, True, (bf16,)) for S in buckets[1:3]]
+    cases += [(randn_lm, 1, Hq, Hkv, 67, 67, D, True, (f32,))
+              for Hq, Hkv, D in ((40, 8, 128), (32, 8, 128), (32, 32, 64))]
     err = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
-    for (draw, Hq, Hkv, Sq, Skv, D, causal, dtypes) in cases:
+    for (draw, B, Hq, Hkv, Sq, Skv, D, causal, dtypes) in cases:
         for dtype in dtypes:
-            q, k, v = draw(1, Hq, Sq, D).to(dtype), draw(1, Hkv, Skv, D).to(dtype), draw(1, Hkv, Skv, D).to(dtype)
+            q, k, v = draw(B, Hq, Sq, D).to(dtype), draw(B, Hkv, Skv, D).to(dtype), draw(B, Hkv, Skv, D).to(dtype)
             name = fa.route(dtype, D)
             before = {n: runtime.LAUNCHES[n] for n in err}
             got = fa.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             check({n: runtime.LAUNCHES[n] - before[n] for n in err} == {n: int(n == name) for n in err},
                   f"flash_attention {dtype} D={D} did not launch {name} once")
-            what = f"{name} q[1,{Hq},{Sq},{D}] kv[1,{Hkv},{Skv},{D}] {str(dtype)[6:]} causal={causal}"
+            what = f"{name} q[{B},{Hq},{Sq},{D}] kv[{B},{Hkv},{Skv},{D}] {str(dtype)[6:]} causal={causal}"
             want = ref.reference_attention(q, k, v, causal=causal)
             e = _close(got, want, **_tol(dtype, 2e-5), what=what)
             row = _close_rows(got, want, _ROW_RTOL[str(dtype)[6:]], what)
@@ -797,6 +838,12 @@ def attention_records(device) -> dict:
     rec["flash_attention/bf16_d112_gqa8"] = _attention_record(
         q, k, v, BF16_TC_OPS_PER_S, "flash_attention", 10,
         "flash_attention q[1,64,4096,112] kv[1,8,4096,112] bf16 causal")
+    # the tensor-core kernel at the dense families' head width (granite,
+    # llama-3.2-vision): 32 query heads of 128 over 8 KV heads
+    q, k, v = (randn_lm(1, H, 4096, 128).to(bf16) for H in (32, 8, 8))
+    rec["flash_attention_sm90/bf16_d128_gqa4"] = _attention_record(
+        q, k, v, BF16_TC_OPS_PER_S, "flash_attention_sm90", 20,
+        "flash_attention_sm90 q[1,32,4096,128] kv[1,8,4096,128] bf16 causal")
     del q, k, v
     return rec
 
@@ -920,19 +967,92 @@ def phase_model_kernels(device) -> dict:
     return rec
 
 
-def phase_serve(device) -> None:
-    """Each SSM-family model at full width and depth behind the token engine."""
+def serve_config(name: str):
+    """A serving model's config, at its depth cut if it has one."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=SERVE_DEPTH[name]) if name in SERVE_DEPTH else cfg
+
+
+def serve_bounds(cfg, S: int, ctx: int) -> dict:
+    """Lower bounds, in ms (``bound_terms``: bytes and operations), of a
+    transformer-family model's prefill of ``S`` tokens (batch 1) and of a
+    2-slot decode step with ``ctx`` tokens cached in each slot, bf16 weights
+    and cache on the tensor cores.  Bytes: each weight a step needs read once
+    (a MoE step: the experts its tokens can pick, at most all), the k and v it
+    writes (prefill) or reads (decode), the LM head.  Operations: 2 a
+    multiply-add of the products on the tokens (a MoE token: top_k experts)
+    and attention's (``flash_attention.operations``; the vlm's cross layers
+    over its patches, whose k and v a prefill projects)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    d, H, KV, hd, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab_size
+    ncb = cfg.audio.n_codebooks if cfg.audio else 1
+    qo, kv = 2 * d * H * hd, 2 * d * KV * hd  # projection weights of q and o, of k and v
+    if cfg.moe:
+        e = cfg.moe
+        expert = 3 * d * e.d_ff_expert
+        mlp_tok, mlp_all = e.top_k * expert + d * e.n_experts, lambda t: min(e.n_experts, t * e.top_k) * expert
+    else:
+        mlp_tok = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+        mlp_all = lambda t: mlp_tok  # noqa: E731
+    n_cross = cfg.n_layers // cfg.vision.cross_attn_every if cfg.vision else 0
+    n_self, P = cfg.n_layers - n_cross, (cfg.vision.n_patches if cfg.vision else 0)
+    head = d * V * ncb
+    out = {}
+    for step, T, B in (("prefill", S, 1), ("decode", 1, 2)):
+        tok_params = n_self * (qo + kv + mlp_tok) + n_cross * (qo + mlp_tok) + head
+        ops = 2 * B * T * tok_params
+        weights = cfg.n_layers * (qo + kv + mlp_all(B * T)) + head
+        if step == "prefill":
+            ops += n_self * fa.operations(1, H, S, S, hd, True) + n_cross * fa.operations(1, H, S, P, hd, False)
+            ops += 2 * P * (cfg.vision.d_vision * d + n_cross * kv) if cfg.vision else 0
+            kv_bytes = (S * n_self + P * n_cross) * 2 * KV * hd * 2
+        else:
+            ops += B * (n_self * H * ctx + n_cross * H * P) * (4 * hd + 1)
+            kv_bytes = B * (ctx * n_self + P * n_cross) * 2 * KV * hd * 2
+        terms = bound_terms({"bytes": 2 * weights + kv_bytes, "ops": ops, "peak": BF16_TC_OPS_PER_S, "exps": 0})
+        out[step] = {"bound_ms": max(terms["bytes"], terms["operations"]), "bytes_ms": terms["bytes"],
+                     "operations_ms": terms["operations"], "ops": ops, "bytes": 2 * weights + kv_bytes}
+    return out
+
+
+def attention_launches(cfg, n_requests: int, n_decode_steps: int) -> int:
+    """The serving path's launches of the bf16 attention kernel for one
+    model: every attention layer of a prefill (zamba2: each shared block; the
+    vlm: its self and cross layers), and the vlm's cross layers at each decode
+    step (self-attention decode is plain PyTorch, as in the reference)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.attn_every * n_requests
+    n = cfg.n_layers * n_requests
+    if cfg.family == "vlm":
+        n += cfg.n_layers // cfg.vision.cross_attn_every * n_decode_steps
+    return n
+
+
+def phase_serve(device) -> dict:
+    """Each serving model behind the token engine; returns, per model, its
+    launches of the two attention kernels (bf16 tensor-core, float32-pipe)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
     from repro_torch.models import build_model
     from repro_torch.serving import Engine, Request
 
+    per_model = {}
     for name in SERVE_MODELS:
-        cfg = get_config(name)
+        t_model = time.perf_counter()
+        cfg = serve_config(name)
         model = build_model(cfg)
+        if name in SERVE_DEPTH:
+            print(f"  serve {name}: full width, depth cut to {cfg.n_layers} of {get_config(name).n_layers} layers")
+        before = {k: runtime.LAUNCHES[k] for k in ("flash_attention_sm90", "flash_attention")}
         t0 = time.perf_counter()
         params = model.init(seed=0, device=device)
         torch.cuda.synchronize()
@@ -944,8 +1064,10 @@ def phase_serve(device) -> None:
         loaded = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         rng = np.random.default_rng(0)
+        tail = (cfg.audio.n_codebooks,) if cfg.audio else ()
         for rid, n in enumerate(SERVE_PROMPTS):
-            eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n), max_tokens=SERVE_NEW_TOKENS))
+            eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, (n,) + tail),
+                               max_tokens=SERVE_NEW_TOKENS))
         decode_ms, n_steps, busy, n_kern, profiled_ms = [], 0, 0.0, 0, 0.0
         t_start = time.perf_counter()
         while eng.queue or any(r is not None for r in eng.slot_req):
@@ -962,20 +1084,33 @@ def phase_serve(device) -> None:
                 eng.step()
                 torch.cuda.synchronize()
                 decode_ms.append((time.perf_counter() - max([t0] + [r.t_first for r in admitted])) * 1e3)
-            n_steps += 1
+            n_steps += 1  # every engine step here ends in one batched decode step
         wall = time.perf_counter() - t_start
         done = sorted(eng.finished, key=lambda r: r.rid)
         check(len(done) == len(SERVE_PROMPTS), f"{name}: {len(done)} of {len(SERVE_PROMPTS)} requests finished")
         for r in done:
-            check(len(r.generated) == SERVE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.generated),
+            toks = np.asarray(r.generated)
+            check(toks.shape == (SERVE_NEW_TOKENS,) + tail and bool(np.all((0 <= toks) & (toks < cfg.vocab_size))),
                   f"{name}: request {r.rid} generated {r.generated}")
         check(all(bool(torch.isfinite(v.float()).all()) for k, v in eng.cache.items() if k != "len"),
               f"{name}: non-finite values in the decode cache")
+        launched = {k: runtime.LAUNCHES[k] - n for k, n in before.items()}
+        want = attention_launches(cfg, len(SERVE_PROMPTS), n_steps)
+        check(launched == {"flash_attention_sm90": want, "flash_attention": 0},
+              f"{name}: attention launches {launched}, want {want} of flash_attention_sm90 and 0 of the float32 "
+              f"kernel")
+        per_model[name] = launched
         n_tok = sum(len(r.generated) for r in done)
         print(f"  serve {name}: prefill ms by prompt length: "
               + ", ".join(f"{len(r.prompt)}: {(r.t_first - r.t_admit) * 1e3:.2f}" for r in done))
         print(f"  serve {name}: decode ms per engine step (2 slots): median {statistics.median(decode_ms):.3f}, "
               f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f} over {len(decode_ms)} steps")
+        if cfg.family not in ("ssm", "hybrid"):
+            bounds = {S: serve_bounds(cfg, S, 0) for S in SERVE_PROMPTS}
+            print(f"  serve {name}: bounds (serve_bounds, bf16 on the tensor cores): prefill ms by prompt length "
+                  + ", ".join(f"{S}: {b['prefill']['bound_ms']:.3f}" for S, b in bounds.items())
+                  + f"; decode step {bounds[64]['decode']['bound_ms']:.3f} (weights alone), "
+                  f"{serve_bounds(cfg, 64, 4096)['decode']['bound_ms']:.3f} at 4,096 tokens cached a slot")
         print(f"  serve {name}: {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.2f} generated tokens/s end to end "
               f"(prefills included); {n_steps} engine steps")
         print(f"  serve {name}: device memory {loaded / 2**30:.2f} GiB after load (cast weights and cache), "
@@ -988,51 +1123,123 @@ def phase_serve(device) -> None:
                   f"({med:.3f} ms)")
         else:
             print(f"  serve {name}: decode-step idle share not measured (the profiler saw no device time)")
+        print(f"  serve {name}: attention launches {launched} (want {want} on the tensor cores); model wall "
+              f"{time.perf_counter() - t_model:.1f} s")
         del eng, model
         gc.collect()
         torch.cuda.empty_cache()
+    return per_model
 
 
-def phase_agree(device) -> None:
-    """This package on the card, float32, against the reference's fixture."""
+def agree_weights(ref, key: str) -> dict:
+    """A fixture entry's numpy weights: ``init_numpy(seed)`` at its depth, with
+    the cross layers' gates the fixture stores (they start at 0, which would
+    zero the cross path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(str(ref[f"{key}/name"])), dtype="float32",
+                              n_layers=int(ref[f"{key}/n_layers"]))
+    w = build_model(cfg).init_numpy(int(ref[f"{key}/seed"]))
+    if f"{key}/attn_gate" in ref:
+        w["cross_layers"]["attn_gate"], w["cross_layers"]["mlp_gate"] = ref[f"{key}/attn_gate"], ref[f"{key}/mlp_gate"]
+    return w
+
+
+def prefetch_agree_weights(path) -> dict:
+    """Start making a fixture's numpy weights on a host thread, entry by entry
+    (numpy draws without holding the interpreter lock, so the paths before the
+    agreement path run meanwhile: 7.2 B float32 draws for torch_lm_ref.npz).
+    Returns {entry: future}; the thread is a daemon, so a failed run exits
+    without waiting for it."""
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+
+    ref = dict(np.load(path))
+    futures = {str(k): concurrent.futures.Future() for k in ref["entries"]}
+
+    def make():
+        for key, fut in futures.items():
+            try:
+                fut.set_result(agree_weights(ref, key))
+            except Exception as exc:  # handed to the agreement path, which raises it
+                fut.set_exception(exc)
+
+    threading.Thread(target=make, name="agree-weights", daemon=True).start()
+    return futures
+
+
+def vision_input(cfg, seed: int):
+    """The agreement path's vision input, as tools/make_torch_lm_ref.py makes it."""
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal((1, cfg.vision.n_patches, cfg.vision.d_vision),
+                                                       dtype=np.float32)
+
+
+def phase_agree(device, path=FIXTURE, weights=None) -> None:
+    """This package on the card, float32, against a fixture of the reference's
+    logits; ``weights`` maps an entry to a future of its numpy weights (else
+    they are made here)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, params_from_numpy
 
-    ref = np.load(FIXTURE)
+    ref = dict(np.load(path))
     for key in [str(k) for k in ref["entries"]]:
+        t_entry = time.perf_counter()
         name, n_layers = str(ref[f"{key}/name"]), int(ref[f"{key}/n_layers"])
         cfg = dataclasses.replace(get_config(name), dtype="float32", n_layers=n_layers)
         model = build_model(cfg)
         t0 = time.perf_counter()
-        params = params_from_numpy(cfg, model.init_numpy(int(ref[f"{key}/seed"])), device)
+        w = weights.pop(key).result() if weights is not None else agree_weights(ref, key)
+        t_wait = time.perf_counter() - t0
+        params = params_from_numpy(cfg, w, device)
+        del w
         t_init = time.perf_counter() - t0
+        vision = None
+        if cfg.vision:
+            vision = torch.from_numpy(vision_input(cfg, int(ref[f"{key}/vision_seed"]))).to(device)
         prompt = torch.as_tensor(ref[f"{key}/prompt"], device=device)[None]
         tokens, top_idx, top_val = ref[f"{key}/tokens"], ref[f"{key}/top_idx"], ref[f"{key}/top_val"]
         bound = max(AGREE_FLOOR, AGREE_FACTOR * float(np.max(ref[f"{key}/spread"])))
-        logits, cache = model.prefill(params, prompt, max_len=prompt.shape[1] + len(tokens))
+        logits, cache = model.prefill(params, prompt, max_len=prompt.shape[1] + len(tokens), vision=vision)
         steps = [logits[0]]
-        for t in tokens[:-1]:  # teacher-forced with the fixture's greedy tokens
-            logits, cache = model.decode_step(params, torch.tensor([[int(t)]], device=device), cache)
+        for t in tokens[:-1]:  # teacher-forced with the fixture's greedy tokens ([ncb] a step for audio)
+            t = torch.as_tensor(np.asarray(t), device=device)
+            logits, cache = model.decode_step(params, t.reshape((1, 1) + tuple(t.shape)), cache)
             steps.append(logits[0])
-        worst, checked = 0.0, 0
+        router = (f"; the reference's smallest top-k router margin {float(ref[f'{key}/router_margin']):.3g}"
+                  if f"{key}/router_margin" in ref else "")
+        worst, checked, total = 0.0, 0, 0
         for i, lg in enumerate(steps):
             lg = lg.double().cpu().numpy()
             check(bool(np.all(np.isfinite(lg))), f"{key} step {i}: non-finite logits")
+            lg = lg.reshape(-1, lg.shape[-1])  # [codebooks, V]
             scale = float(np.max(np.abs(top_val[i])))
-            rel = float(np.max(np.abs(lg[top_idx[i]] - top_val[i]))) / scale
+            rel = float(np.max(np.abs(lg.reshape(-1)[top_idx[i]] - top_val[i]))) / scale
             worst = max(worst, rel)
-            check(rel <= bound, f"{key} step {i}: logits off the fixture by rel {rel:.3g} (bound {bound:.3g})")
-            if float(top_val[i][0] - top_val[i][1]) / scale > bound:
-                checked += 1
-                check(int(lg.argmax()) == int(tokens[i]),
-                      f"{key} step {i}: greedy token {int(lg.argmax())}, fixture {int(tokens[i])}")
-        print(f"  agree {key} (float32, weights made in {t_init:.1f} s): prefill + {len(tokens) - 1} decode steps "
-              f"within rel {worst:.3g} of the fixture (bound {bound:.3g}, the reference's own spread "
-              f"{float(np.max(ref[f'{key}/spread'])):.3g}); greedy tokens equal at the {checked} of {len(steps)} "
-              f"steps whose top-2 margin exceeds the bound")
+            check(rel <= bound, f"{key} step {i}: logits off the fixture by rel {rel:.3g} (bound {bound:.3g}){router}")
+            # each codebook's top-2 margin (the SSM fixture has one codebook and no stored margins)
+            margin = (ref[f"{key}/margin"][i] if f"{key}/margin" in ref
+                      else [float(top_val[i][0] - top_val[i][1]) / scale])
+            want = np.asarray(tokens[i]).reshape(-1)
+            for c, m in enumerate(margin):
+                total += 1
+                if m > bound:
+                    checked += 1
+                    check(int(lg[c].argmax()) == int(want[c]),
+                          f"{key} step {i} codebook {c}: greedy token {int(lg[c].argmax())}, fixture {int(want[c])}")
+        made = f"{t_wait:.1f} s of it waiting for the host thread" if weights is not None else "on this thread"
+        print(f"  agree {key} (float32, weights made in {t_init:.1f} s, {made}): prefill + {len(tokens) - 1} "
+              f"decode steps within rel {worst:.3g} of the fixture (bound "
+              f"{bound:.3g}, the reference's own spread {float(np.max(ref[f'{key}/spread'])):.3g}); greedy tokens "
+              f"equal at the {checked} of {total} steps and codebooks whose top-2 margin exceeds the bound{router}; "
+              f"entry wall {time.perf_counter() - t_entry:.1f} s")
         del params, cache, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2201,13 +2408,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
 
     t_start = time.perf_counter()
     device = runtime.resolve_device(None)
     smi = phase_env()
     phase_build()
+    # the agreement path's numpy weights for the transformer fixture, made on a
+    # host thread while the other paths run
+    lm_weights = prefetch_agree_weights(LM_FIXTURE)
     print("kernels against their plain versions:")
     rec = phase_kernels(device)
     rec.update(phase_model_kernels(device))
@@ -2228,14 +2437,21 @@ def main() -> int:
     for k, n in drive("pool", [lambda: phase_pool(device, smi, design)], DESIGN_KERNELS).items():
         launches[k] += n  # and the pool path's (its staged and pooled tiers; workers count their own)
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
-    launches.update(drive("serving", [lambda: phase_serve(device)], SERVE_KERNELS))
-    zamba2 = get_config("zamba2-1.2b")  # one shared attention block after every attn_every layers
-    want = zamba2.n_layers // zamba2.hybrid.attn_every * len(SERVE_PROMPTS)
-    check(launches["flash_attention_sm90"] == want and runtime.LAUNCHES["flash_attention"] == 0,
-          f"serving path: {launches['flash_attention_sm90']} launches of flash_attention_sm90 (want {want}) and "
-          f"{runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
-    print("agreement with the reference package (fixture), float32:")
-    launches.update(drive("agreement", [lambda: phase_agree(device)], AGREE_KERNELS))
+    t0 = time.perf_counter()
+    served = {}
+    launches.update(drive("serving", [lambda: served.update(phase_serve(device))], SERVE_KERNELS))
+    # each model's count was held in phase_serve (bf16 kernel: every attention
+    # layer of a prefill and the vlm's cross layers a decode step; float32 kernel: 0)
+    check(launches["flash_attention_sm90"] == sum(n["flash_attention_sm90"] for n in served.values())
+          and runtime.LAUNCHES["flash_attention"] == 0,
+          f"serving path: {launches['flash_attention_sm90']} launches of flash_attention_sm90 (per model "
+          f"{served}) and {runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
+    print(f"serving path wall {time.perf_counter() - t0:.1f} s")
+    print("agreement with the reference package (fixtures), float32:")
+    t0 = time.perf_counter()
+    launches.update(drive("agreement", [lambda: phase_agree(device),
+                                        lambda: phase_agree(device, LM_FIXTURE, lm_weights)], AGREE_KERNELS))
+    print(f"agreement path wall {time.perf_counter() - t0:.1f} s")
     print("where the time goes:")
     phase_profile(device, dse)
 

@@ -1,4 +1,4 @@
-"""Layers shared by the SSM-family models (functional, over plain tensors).
+"""Layers shared by the model zoo (functional, over plain tensors).
 
 Attention has two paths:
 
@@ -51,14 +51,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def mlp_act(gate: torch.Tensor, up: Optional[torch.Tensor], kind: str) -> torch.Tensor:
+    """swiglu (silu in float32), gelu (the tanh approximation, in the gate's
+    dtype, as ``jax.nn.gelu``) or relu2 (``relu(gate) ** 2``)."""
     if kind == "swiglu":
         return F.silu(gate.float()).to(gate.dtype) * up
-    raise ValueError(f"mlp kind {kind!r} is not ported yet: only the shared block's swiglu is (see ROADMAP.md)")
+    if kind == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    if kind == "relu2":
+        r = F.relu(gate)
+        return r * r
+    raise ValueError(kind)
 
 
 # --------------------------------------------------------------------------- #
 # attention
 # --------------------------------------------------------------------------- #
+
+
+def write_at(cache: torch.Tensor, lens: torch.Tensor, x: torch.Tensor) -> None:
+    """``cache[b, lens[b]] = x[b]`` in place, for every b with lens[b] inside
+    the cache; a write past its end is dropped (no index leaves the cache)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    idx = lens.clamp(max=cache.shape[1] - 1)
+    keep = (lens < cache.shape[1]).reshape((-1,) + (1,) * (x.ndim - 1))
+    cache[bidx, idx] = torch.where(keep, x.to(cache.dtype), cache[bidx, idx])
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len: torch.Tensor, *,

@@ -1,30 +1,35 @@
-"""The Model API for the SSM families: ``build_model(cfg) -> Model`` with
-``forward`` / ``prefill`` / ``decode_step`` over a dict of stacked ``[L, ...]``
-parameter tensors.
-
-Only the ``ssm`` (falcon-mamba, Mamba1) and ``hybrid`` (zamba2, Mamba2 with a
-shared attention block) families are ported; any other family raises.
+"""The Model API: ``build_model(cfg) -> Model`` with ``forward`` / ``prefill``
+/ ``decode_step`` over a dict of stacked ``[L, ...]`` parameter tensors, for
+every family of the zoo: dense, audio (codebooks), moe, vlm (cross-attention
+to vision patches), ssm (falcon-mamba, Mamba1) and hybrid (zamba2, Mamba2 with
+a shared attention block).
 
 Against the reference's structure:
   * the scan over layers is a Python loop over views of the stacked tensors;
+  * the vlm stack runs, per group, its ``cross_attn_every - 1`` self layers and
+    then its cross layer, whose residuals are scaled by ``tanh`` of its gates;
   * the zamba2 shared block runs after every ``attn_every``-th Mamba2 layer,
     and layers past the last multiple (zamba2's 2 of 38) form a tail with no
     block after them;
   * the scan kernels return their final state, so :meth:`Model.prefill`
     collects the conv windows and states in the forward itself, with no second
     pass over the prompt;
+  * :meth:`Model.forward` returns (out, caches): the MoE aux losses come with
+    the training stack's loss, not here;
   * weights are cast to the compute dtype by :meth:`Model.precast`, once at
     load (the serving engine calls it); the functions below cast only leaves
     still in float32, which a precast tree no longer has;
   * :meth:`Model.decode_step` updates the cache it is given in place, which
     keeps one copy of the multi-GB cache.
 
-Cache layouts are the reference's: ``conv [L, B, K-1, C]``, ``state [L, B, ...]``
-fp32, ``k``/``v [n_kv_layers, B, max_len, KV, hd]``, ``len [B]``.
+Cache layouts are the reference's: ``k``/``v [n_kv_layers, B, max_len, KV, hd]``,
+``xk``/``xv [n_cross, B, n_patches, KV, hd]`` (vlm), ``conv [L, B, K-1, C]``,
+``state [L, B, ...]`` fp32, ``len [B]``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,9 +40,7 @@ from repro_torch.kernels import runtime
 from repro_torch.models import defs as D
 from repro_torch.models import ssm_models as S
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import apply_rope, attention, decode_attention, mlp_act, mm, rms_norm
-
-PORTED_FAMILIES = ("ssm", "hybrid")
+from repro_torch.models.layers import apply_rope, attention, decode_attention, mlp_act, mm, rms_norm, write_at
 
 # numerics-sensitive leaves stay fp32; everything else is cast to the compute dtype
 _KEEP_F32 = {"norm", "ln1", "ln2", "norm_g", "final_norm", "A_log", "dt_bias",
@@ -55,7 +58,7 @@ def cast_layer_params(cfg: ModelConfig, tree: dict) -> dict:
 
 def _precast(cfg: ModelConfig, params: dict) -> dict:
     out = dict(params)
-    for key in ("layers", "shared"):
+    for key in ("layers", "shared", "cross_layers"):
         if key in params:
             out[key] = cast_layer_params(cfg, params[key])
     if params["lm_head"].dtype == torch.float32:
@@ -65,15 +68,6 @@ def _precast(cfg: ModelConfig, params: dict) -> dict:
 
 def _layer(layers: dict, i: int) -> dict:
     return {k: v[i] for k, v in layers.items()}
-
-
-def _write_at(cache: torch.Tensor, lens: torch.Tensor, x: torch.Tensor) -> None:
-    """``cache[b, lens[b]] = x[b]`` in place, for every b with lens[b] inside
-    the cache; a write past its end is dropped (no index leaves the cache)."""
-    bidx = torch.arange(cache.shape[0], device=cache.device)
-    idx = lens.clamp(max=cache.shape[1] - 1)
-    keep = (lens < cache.shape[1]).reshape((-1,) + (1,) * (x.ndim - 1))
-    cache[bidx, idx] = torch.where(keep, x.to(cache.dtype), cache[bidx, idx])
 
 
 # --------------------------------------------------------------------------- #
@@ -108,8 +102,8 @@ def _shared_block_decode(cfg: ModelConfig, sp: dict, h, h0, k_cache, v_cache, le
     ([B, max_len, KV, hd] views) in place."""
     B = h.shape[0]
     q, k, v = _shared_qkv(cfg, sp, h, h0, lens.reshape(B, 1))
-    _write_at(k_cache, lens, k[:, 0])
-    _write_at(v_cache, lens, v[:, 0])
+    write_at(k_cache, lens, k[:, 0])
+    write_at(v_cache, lens, v[:, 0])
     o = decode_attention(q.transpose(1, 2), k_cache.transpose(1, 2).to(q.dtype),
                          v_cache.transpose(1, 2).to(q.dtype), lens + 1)
     h = h + mm("bshk,hkd->bsd", o.transpose(1, 2), sp["wo"].reshape(cfg.n_heads, cfg.hd, -1))
@@ -125,24 +119,24 @@ def _shared_block_decode(cfg: ModelConfig, sp: dict, h, h0, k_cache, v_cache, le
 class Model:
     cfg: ModelConfig
 
-    def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise ValueError(f"family {self.cfg.family!r} ({self.cfg.name}) is not ported yet: only "
-                             f"{PORTED_FAMILIES} are (see ROADMAP.md, queue 1)")
-
     # ------------------------------------------------------------- params --
     def param_defs(self) -> dict:
         cfg = self.cfg
-        defs = {
-            "embed": D.ParamDef((1, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), "embed", 0.02),
-            "final_norm": D.ParamDef((cfg.d_model,), (None,), "ones"),
-            "lm_head": D.ParamDef((1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab")),
-        }
-        if cfg.family == "ssm":
-            defs["layers"] = S.mamba1_defs(cfg)
+        if cfg.family in ("dense", "audio", "vlm", "moe"):
+            defs = T.transformer_defs(cfg)
+        elif cfg.family in ("ssm", "hybrid"):
+            defs = {
+                "embed": D.ParamDef((1, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), "embed", 0.02),
+                "final_norm": D.ParamDef((cfg.d_model,), (None,), "ones"),
+                "lm_head": D.ParamDef((1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab")),
+            }
+            if cfg.family == "ssm":
+                defs["layers"] = S.mamba1_defs(cfg)
+            else:
+                defs["layers"] = S.mamba2_defs(cfg, cfg.n_layers)
+                defs["shared"] = S.shared_block_defs(cfg)
         else:
-            defs["layers"] = S.mamba2_defs(cfg, cfg.n_layers)
-            defs["shared"] = S.shared_block_defs(cfg)
+            raise ValueError(cfg.family)
         if cfg.param_dtype != "float32":
             # weight matrices stored reduced-precision; norms, biases and SSM
             # constants stay fp32
@@ -172,26 +166,58 @@ class Model:
         return _precast(self.cfg, params)
 
     # ------------------------------------------------------------ forward --
-    def forward(self, params: dict, tokens: torch.Tensor, *, collect_cache: bool = False, head: bool = True):
-        """Full-sequence forward.  tokens [B, S].  Returns (logits [B, S, V], caches)
-        or, with ``head=False``, (hidden [B, S, d], caches).  With
-        ``collect_cache`` the caches hold each layer's conv window and final
-        state (``conv``, ``state``) and, for the hybrid, each shared block's k
-        and v [G, B, S, KV, hd]."""
+    def forward(self, params: dict, tokens: torch.Tensor, *, vision: Optional[torch.Tensor] = None,
+                collect_cache: bool = False, head: bool = True):
+        """Full-sequence forward.  tokens [B, S], or [B, S, ncb] for audio;
+        ``vision`` [B, n_patches, d_vision] for the vlm family.  Returns
+        (logits [B, S, (ncb,) V], caches) or, with ``head=False``, (hidden
+        [B, S, d], caches).  With ``collect_cache`` the caches hold each
+        attention layer's k and v [L, B, S, KV, hd], the vlm's cross layers'
+        vision k and v (``xk``, ``xv``), and each SSM layer's conv window and
+        final state (``conv``, ``state``)."""
         cfg = self.cfg
-        B, Sq = tokens.shape
+        dt = _dtype(cfg)
+        B, Sq = tokens.shape[:2]
         params = _precast(cfg, params)
-        h = T.embed_tokens(cfg, params, tokens, _dtype(cfg))
-        convs, states, ks, vs = [], [], [], []
-        if cfg.family == "ssm":
+        h = T.embed_tokens(cfg, params, tokens, dt)
+        positions = torch.arange(Sq, device=h.device).expand(B, Sq)
+        convs, states, ks, vs, xks, xvs = [], [], [], [], [], []
+
+        def self_layer(lp, h):
+            a, (k, v) = T.self_attn_block(cfg, lp, h, positions)
+            h = h + a
+            if cfg.family == "moe":
+                m, _, _ = T.moe_block(cfg, lp, h)  # the aux losses are the training loss's
+            else:
+                m = T.mlp_block(cfg, lp, h)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+            return h + m
+
+        if cfg.family in ("dense", "audio", "moe"):
+            for i in range(cfg.n_layers):
+                h = self_layer(_layer(params["layers"], i), h)
+        elif cfg.family == "vlm":
+            every = cfg.vision.cross_attn_every
+            vis = mm("bpe,ed->bpd", vision.to(dt), params["patch_proj"])
+            for g in range(cfg.n_layers // every):
+                for j in range(every - 1):
+                    h = self_layer(_layer(params["layers"], g * (every - 1) + j), h)
+                clp = _layer(params["cross_layers"], g)
+                kv_k, kv_v = T.vision_kv(cfg, clp, vis)
+                h = _cross_layer(cfg, clp, h, kv_k, kv_v)
+                if collect_cache:
+                    xks.append(kv_k)
+                    xvs.append(kv_v)
+        elif cfg.family == "ssm":
             for i in range(cfg.n_layers):
                 h, (cb, st) = S.mamba1_layer(cfg, _layer(params["layers"], i), h)
                 convs.append(cb)
                 states.append(st)
-        else:
+        elif cfg.family == "hybrid":
             every = cfg.hybrid.attn_every
             h0 = h
-            positions = torch.arange(Sq, device=h.device).expand(B, Sq)
             for i in range(cfg.n_layers):
                 h, (cb, st) = S.mamba2_layer(cfg, _layer(params["layers"], i), h)
                 convs.append(cb)
@@ -200,11 +226,13 @@ class Model:
                     h, (k, v) = _shared_block(cfg, params["shared"], h, h0, positions)
                     ks.append(k)
                     vs.append(v)
+        else:
+            raise ValueError(cfg.family)
         caches = {}
         if collect_cache:
-            caches = {"conv": torch.stack(convs), "state": torch.stack(states)}
-            if ks:
-                caches["k"], caches["v"] = torch.stack(ks), torch.stack(vs)
+            for key, xs in (("conv", convs), ("state", states), ("k", ks), ("v", vs), ("xk", xks), ("xv", xvs)):
+                if xs:
+                    caches[key] = torch.stack(xs)
         if not head:
             return h, caches
         return T.lm_logits(cfg, params, h), caches
@@ -212,6 +240,11 @@ class Model:
     # ------------------------------------------------------------ caching --
     def cache_dims(self) -> dict:
         cfg = self.cfg
+        if cfg.family in ("dense", "audio", "moe"):
+            return {"kind": "kv", "n_kv_layers": cfg.n_layers}
+        if cfg.family == "vlm":
+            k = cfg.vision.cross_attn_every
+            return {"kind": "kv+x", "n_kv_layers": cfg.n_layers - cfg.n_layers // k, "n_cross": cfg.n_layers // k}
         if cfg.family == "ssm":
             return {"kind": "ssm", "n_ssm_layers": cfg.n_layers}
         return {"kind": "hybrid", "n_ssm_layers": cfg.n_layers,
@@ -221,18 +254,23 @@ class Model:
         """name -> (shape, dtype) of the decode cache."""
         cfg = self.cfg
         dt = _dtype(cfg)
+        KV, hd = cfg.n_kv_heads, cfg.hd
         dims = self.cache_dims()
-        L, s, di = dims["n_ssm_layers"], cfg.ssm, cfg.d_inner
         out = {"len": ((B,), torch.int64)}
         if "n_kv_layers" in dims:
-            kv = (dims["n_kv_layers"], B, max_len, cfg.n_kv_heads, cfg.hd)
+            kv = (dims["n_kv_layers"], B, max_len, KV, hd)
             out["k"], out["v"] = (kv, dt), (kv, dt)
-        if cfg.family == "ssm":
-            out["conv"] = ((L, B, s.d_conv - 1, di), dt)
-            out["state"] = ((L, B, di, s.d_state), torch.float32)
-        else:
-            out["conv"] = ((L, B, s.d_conv - 1, di + 2 * s.d_state), dt)
-            out["state"] = ((L, B, di // s.head_dim, s.d_state, s.head_dim), torch.float32)
+        if dims["kind"] == "kv+x":
+            x = (dims["n_cross"], B, cfg.vision.n_patches, KV, hd)
+            out["xk"], out["xv"] = (x, dt), (x, dt)
+        if dims["kind"] in ("ssm", "hybrid"):
+            L, s, di = dims["n_ssm_layers"], cfg.ssm, cfg.d_inner
+            if cfg.family == "ssm":
+                out["conv"] = ((L, B, s.d_conv - 1, di), dt)
+                out["state"] = ((L, B, di, s.d_state), torch.float32)
+            else:
+                out["conv"] = ((L, B, s.d_conv - 1, di + 2 * s.d_state), dt)
+                out["state"] = ((L, B, di // s.head_dim, s.d_state, s.head_dim), torch.float32)
         return out
 
     def init_cache(self, B: int, max_len: int, device=None) -> dict:
@@ -240,18 +278,32 @@ class Model:
         return {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in self.cache_struct(B, max_len).items()}
 
     # ------------------------------------------------------------ prefill --
-    def prefill(self, params: dict, tokens: torch.Tensor, *, max_len: int):
-        """Process the prompt (exact length: a recurrent state would absorb
-        any padding).  Returns (last-position logits [B, V], cache)."""
+    def prefill(self, params: dict, tokens: torch.Tensor, *, max_len: int, vision: Optional[torch.Tensor] = None,
+                length: Optional[int] = None):
+        """Process the prompt.  Returns (last-position logits [B, (ncb,) V], cache).
+
+        ``length`` is the true prompt length when ``tokens`` is right-padded to
+        a bucket: the head runs at position ``length - 1`` and ``cache["len"]``
+        is ``length``, so decode's length-masked attention never reads the
+        padding's k/v rows.  That is exact for the causal kv-cache families
+        only: an SSM or hybrid prefill folds every position into its recurrent
+        state, so those raise on ``length=`` and take the exact prompt."""
         cfg = self.cfg
-        B, Sq = tokens.shape
+        if length is not None and cfg.family in ("ssm", "hybrid"):
+            raise ValueError(f"bucketed prefill (length=) is invalid for family {cfg.family!r}: "
+                             "recurrent state absorbs padded positions")
+        B, Sq = tokens.shape[:2]
         if Sq > max_len:
             raise ValueError(f"prompt of {Sq} tokens exceeds max_len={max_len}")
+        true_len = Sq if length is None else int(length)
         params = _precast(cfg, params)
-        h, caches = self.forward(params, tokens, collect_cache=True, head=False)
-        logits = T.lm_logits(cfg, params, h[:, -1:])
-        cache = {"len": torch.full((B,), Sq, dtype=torch.int64, device=h.device),
-                 "conv": caches["conv"], "state": caches["state"]}
+        h, caches = self.forward(params, tokens, vision=vision, collect_cache=True, head=False)
+        # the head at the last true position only (causal: it never sees the padding)
+        logits = T.lm_logits(cfg, params, h[:, true_len - 1:true_len])
+        cache = {"len": torch.full((B,), true_len, dtype=torch.int64, device=h.device)}
+        for key in ("conv", "state", "xk", "xv"):
+            if key in caches:
+                cache[key] = caches[key]
         if "k" in caches:
             pad = (0, 0, 0, 0, 0, max_len - Sq)
             cache["k"], cache["v"] = F.pad(caches["k"], pad), F.pad(caches["v"], pad)
@@ -259,23 +311,50 @@ class Model:
 
     # -------------------------------------------------------------- decode --
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
-        """tokens [B, 1].  Returns (logits [B, V], cache), the cache updated in place."""
+        """tokens [B, 1], or [B, 1, ncb] for audio.  Returns (logits
+        [B, (ncb,) V], cache), the cache updated in place."""
         cfg = self.cfg
         params = _precast(cfg, params)
         lens = cache["len"]
         h = T.embed_tokens(cfg, params, tokens, _dtype(cfg))
-        h0 = h
-        step = S.mamba1_decode if cfg.family == "ssm" else S.mamba2_decode
-        for i in range(cfg.n_layers):
-            h, cb, st = step(cfg, _layer(params["layers"], i), h, cache["conv"][i], cache["state"][i])
-            cache["conv"][i] = cb
-            cache["state"][i] = st
-            if cfg.family == "hybrid" and (i + 1) % cfg.hybrid.attn_every == 0:
-                g = (i + 1) // cfg.hybrid.attn_every - 1
-                h = _shared_block_decode(cfg, params["shared"], h, h0, cache["k"][g], cache["v"][g], lens)
+
+        def self_layer(lp, h, i):
+            a, _, _ = T.self_attn_decode(cfg, lp, h, cache["k"][i], cache["v"][i], lens)
+            h = h + a
+            m = T.moe_block(cfg, lp, h)[0] if cfg.family == "moe" else T.mlp_block(cfg, lp, h)
+            return h + m
+
+        if cfg.family in ("dense", "audio", "moe"):
+            for i in range(cfg.n_layers):
+                h = self_layer(_layer(params["layers"], i), h, i)
+        elif cfg.family == "vlm":
+            every = cfg.vision.cross_attn_every
+            for g in range(cfg.n_layers // every):
+                for j in range(every - 1):
+                    i = g * (every - 1) + j
+                    h = self_layer(_layer(params["layers"], i), h, i)
+                h = _cross_layer(cfg, _layer(params["cross_layers"], g), h, cache["xk"][g], cache["xv"][g])
+        else:
+            h0 = h
+            step = S.mamba1_decode if cfg.family == "ssm" else S.mamba2_decode
+            for i in range(cfg.n_layers):
+                h, cb, st = step(cfg, _layer(params["layers"], i), h, cache["conv"][i], cache["state"][i])
+                cache["conv"][i] = cb
+                cache["state"][i] = st
+                if cfg.family == "hybrid" and (i + 1) % cfg.hybrid.attn_every == 0:
+                    g = (i + 1) // cfg.hybrid.attn_every - 1
+                    h = _shared_block_decode(cfg, params["shared"], h, h0, cache["k"][g], cache["v"][g], lens)
         logits = T.lm_logits(cfg, params, h)
         cache["len"] = lens + 1
         return logits[:, -1], cache
+
+
+def _cross_layer(cfg: ModelConfig, clp: dict, h: torch.Tensor, kv_k, kv_v) -> torch.Tensor:
+    """A vlm cross layer: cross-attention, then the MLP, each residual scaled
+    by ``tanh`` of the layer's gate."""
+    dt = h.dtype
+    h = h + T.cross_attn_block(cfg, clp, h, kv_k, kv_v) * torch.tanh(clp["attn_gate"]).to(dt)
+    return h + T.mlp_block(cfg, clp, h) * torch.tanh(clp["mlp_gate"]).to(dt)
 
 
 def build_model(cfg: ModelConfig) -> Model:

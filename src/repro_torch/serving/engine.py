@@ -6,8 +6,14 @@ engine's cache, in place), then joins the batched decode step; a finished
 sequence (eos or max_tokens) frees its slot.  Per-slot cache lengths make
 ragged decoding exact.
 
-Prefill is exact-length: the recurrent families this package serves fold
-every prompt position into their state, so a padded prompt would corrupt it.
+Prompts of the causal kv-cache families (dense, audio, moe, vlm) are
+right-padded to a bucket (the next power of two, at least 8, at most
+``max_len``) and prefilled with their true length: decode's length-masked
+attention never reads a padded position.  The recurrent families (ssm,
+hybrid) fold every prompt position into their state, so they prefill at the
+exact length.  The vlm's vision tower is a stub: every request sees zero
+patch embeddings, as in the reference.  An audio request's prompt is
+``[S, ncb]`` and each step samples one token a codebook.
 
 Sampling is greedy (argmax) or by temperature with Gumbel noise drawn from a
 ``torch.Generator`` seeded from (seed, rid, position): deterministic within
@@ -50,7 +56,7 @@ from repro_torch.serving.resilience import (
 @dataclass
 class Request:
     rid: int
-    prompt: np.ndarray  # [S]
+    prompt: np.ndarray  # [S] or [S, ncb]
     max_tokens: int = 32
     temperature: float = 0.0
     eos: Optional[int] = None
@@ -62,6 +68,14 @@ class Request:
     t_admit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+
+
+_MIN_PROMPT_BUCKET = 8
+
+
+def _bucket_prompt(s: int) -> int:
+    """Prompt-length bucket: next power of two, at least ``_MIN_PROMPT_BUCKET``."""
+    return max(_MIN_PROMPT_BUCKET, 1 << (max(s, 1) - 1).bit_length())
 
 
 def _stream_seed(*parts: int) -> int:
@@ -83,7 +97,11 @@ class Engine:
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.queue: list[Request] = []
         self.finished: list[Request] = []
-        self._next_tok = np.zeros((slots, 1), np.int64)
+        cfg = model.cfg
+        self._next_tok = np.zeros((slots, 1, cfg.audio.n_codebooks) if cfg.audio else (slots, 1), np.int64)
+        # the vision stub: zero patch embeddings for every request, as in the reference
+        self._vision = (torch.zeros((1, cfg.vision.n_patches, cfg.vision.d_vision), device=self.device)
+                        if cfg.vision else None)
 
     # ------------------------------------------------------------ intake --
     def submit(self, req: Request):
@@ -107,13 +125,12 @@ class Engine:
             if self.slot_req[slot] is None and self.queue:
                 req = self.queue.pop(0)
                 req.t_admit = time.perf_counter()
-                prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)[None]
-                logits, cache1 = self.model.prefill(self.params, prompt, max_len=self.max_len)
+                logits, cache1 = self._prefill(np.asarray(req.prompt, np.int64))
                 self._write_slot(slot, cache1)
                 tok = self._sample(req, logits[0].cpu().numpy())
                 req.t_first = time.perf_counter()
                 req.generated.append(tok)
-                self._next_tok[slot] = tok
+                self._next_tok[slot] = np.reshape(tok, self._next_tok[slot].shape)
                 self.slot_req[slot] = req
         active = [s for s in range(self.slots) if self.slot_req[s] is not None]
         if not active:
@@ -126,13 +143,25 @@ class Engine:
             req = self.slot_req[slot]
             tok = self._sample(req, logits[slot])
             req.generated.append(tok)
-            self._next_tok[slot] = tok
-            if len(req.generated) >= req.max_tokens or (req.eos is not None and tok == req.eos):
+            self._next_tok[slot] = np.reshape(tok, self._next_tok[slot].shape)
+            if len(req.generated) >= req.max_tokens or (req.eos is not None and np.all(np.asarray(tok) == req.eos)):
                 req.done = True
                 req.t_done = time.perf_counter()
                 self.finished.append(req)
                 self.slot_req[slot] = None
         return True
+
+    def _prefill(self, prompt: np.ndarray):
+        """One prompt ([S] or [S, ncb]) through the model's prefill, batch 1:
+        right-padded to its bucket for the kv-cache families."""
+        length = None
+        if self._bucket_prompts:
+            length = prompt.shape[0]
+            sb = min(self.max_len, _bucket_prompt(length))
+            if sb > length:
+                prompt = np.pad(prompt, ((0, sb - length),) + ((0, 0),) * (prompt.ndim - 1))
+        tokens = torch.as_tensor(prompt, device=self.device)[None]
+        return self.model.prefill(self.params, tokens, max_len=self.max_len, vision=self._vision, length=length)
 
     def run(self, max_steps: int = 10_000):
         steps = 0
@@ -142,13 +171,15 @@ class Engine:
         return self.finished
 
     # ------------------------------------------------------------ sample --
-    def _sample(self, req: Request, logits: np.ndarray) -> int:
-        """logits: [V] float32."""
-        if req.temperature <= 0.0:
-            return int(logits.argmax(-1))
-        gen = torch.Generator().manual_seed(_stream_seed(req.seed, req.rid, len(req.generated)))
-        gumbel = -torch.empty(logits.shape, dtype=torch.float64).exponential_(generator=gen).log()
-        return int((logits / req.temperature + gumbel.numpy()).argmax(-1))
+    def _sample(self, req: Request, logits: np.ndarray):
+        """logits: [V] float32, or [ncb, V] for audio.  Returns an int, or an
+        int64 array [ncb] (one token a codebook)."""
+        if req.temperature > 0.0:
+            gen = torch.Generator().manual_seed(_stream_seed(req.seed, req.rid, len(req.generated)))
+            gumbel = -torch.empty(logits.shape, dtype=torch.float64).exponential_(generator=gen).log()
+            logits = logits / req.temperature + gumbel.numpy()
+        tok = logits.argmax(-1)
+        return int(tok) if tok.ndim == 0 else tok.astype(np.int64)
 
 
 # --------------------------------------------------------------------------- #

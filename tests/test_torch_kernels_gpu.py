@@ -383,6 +383,30 @@ def test_flash_attention_other_head_widths_match_plain(cuda, B, Hq, Hkv, Sq, Skv
     _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
 
 
+# the transformer families' serving shapes (bf16: the tensor-core kernel) and
+# agreement shapes (float32): the vision model's cross-attention, not causal,
+# q [B,32,Sq,128] against its 1,601 patches (a prime, so a ragged last K/V
+# tile) in prefill and at Sq = 1 in every decode step of 2 slots;
+# llama4-scout's GQA group 5 (40 query heads over 8); musicgen's MHA at D 64
+LM_ATTN_CASES = [
+    # B, Hq, Hkv, Sq, Skv, D, causal
+    (1, 32, 8, 4096, 1601, 128, False),
+    (1, 32, 8, 512, 1601, 128, False),
+    (1, 32, 8, 67, 1601, 128, False),
+    (2, 32, 8, 1, 1601, 128, False),
+    (1, 40, 8, 1024, 1024, 128, True),
+    (1, 40, 8, 67, 67, 128, True),
+    (1, 32, 32, 1024, 1024, 64, True),
+    (1, 32, 32, 67, 67, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", LM_ATTN_CASES)
+def test_flash_attention_transformer_family_shapes(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_head_width_1_matches_plain(cuda, causal, dtype):

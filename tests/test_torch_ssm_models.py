@@ -58,10 +58,6 @@ class TestParamDefs:
             assert str(d.dtype).removeprefix("torch.") == jnp.dtype(j.dtype).name, path
         assert tmodel.param_count() == jax_build(jax_config(arch)).param_count() == port_config(arch).param_count()
 
-    def test_other_families_are_not_ported(self):
-        with pytest.raises(ValueError, match="not ported yet"):
-            port_build(port_config("granite-3-8b"))
-
     def test_numpy_init_is_seeded_and_follows_the_init_kinds(self):
         cfg = port_config("zamba2-1.2b").reduced()
         a, b = port_build(cfg).init_numpy(7), port_build(cfg).init_numpy(7)
