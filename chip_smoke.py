@@ -136,7 +136,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    tensor-core kernel alone, once for every attention layer of a prefill
    (zamba2: 6 shared blocks) and, for the vision model, once for each of its 8
    cross layers at every decode step;
-9. the agreement path, with the launch counts set to 0 just before and read
+9. the training path, with the launch counts set to 0 just before and read
+   just after (bf16, remat "full", AdamW with warmup_cosine, batches from
+   ``make_batch``): granite-3-8b at full width with 4 of its 40 layers, 2 x
+   4,096 tokens in 2 microbatches, 5 steps of ``make_train_step`` (median
+   step ms over the last 3, tokens/s, the step's bound: model FLOPs over
+   989 TFLOP/s, the idle share and the plain attention backward's share of
+   device time from torch.profiler, peak memory); musicgen-large at full
+   width and depth, 3 steps at 1 x 4,096 x 4 codebooks; llama-3.2-vision-11b
+   with 5 of 40 layers and llama4-scout-17b-a16e with 1 of 48 (int8 moments),
+   5 steps each on one fixed batch of 1 x 1,024, whose loss must fall; each
+   run's attention launches equal to steps x microbatches x (2 a self layer,
+   its forward and its recompute, + 1 a cross layer) and none of the float32
+   kernel; then the ``Trainer`` on musicgen-large at full width with 2 of 48
+   layers (2 x 1,024 tokens, 8 steps, checkpoints every 4 into a temporary
+   directory), once uninterrupted and once with a failure injected at step
+   6, which must restore from step 4 and end with the uninterrupted run's
+   parameters (atol 1e-6; deterministic algorithms, cuBLAS's workspace fixed
+   before CUDA starts);
+10. the agreement path, with the launch counts set to 0 just before and read
    just after: the fixtures tests/data/torch_ssm_ref.npz and
    tests/data/torch_lm_ref.npz (made by tools/make_torch_ssm_ref.py and
    tools/make_torch_lm_ref.py from the JAX models on the same numpy weights:
@@ -145,7 +163,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    all at full width) against this package on the card in float32 (prefill
    logits and 8 teacher-forced decode steps), which runs attention through
    the float32 kernel; the transformer fixture's numpy weights are made on a
-   host thread from the start of the run.
+   host thread from the start of the run; then tests/data/torch_train_ref.npz
+   (made by tools/make_torch_train_ref.py) on the same granite-3-8b weights:
+   the loss, grad norm, per-leaf grad norms, sampled grads and 3 AdamW steps'
+   losses in float32, each within 4x the reference's own spread.
 
 The last two lines are a JSON ``kernels`` record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -157,6 +178,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -278,11 +300,14 @@ def median_ms(fn, device, n: int = 20) -> float:
 
 
 def device_rows(prof) -> list[tuple[float, int, str]]:
-    """(device ms, launches, name) of every kernel a torch.profiler run saw."""
+    """(device ms, launches, name) of every kernel a torch.profiler run saw
+    (not the device-side spans of ``record_function`` ranges, which would
+    count their kernels twice)."""
     rows = []
     for avg in prof.key_averages():
         dt = getattr(avg, "self_device_time_total", 0.0) or 0.0
-        if dt > 0 and getattr(avg, "device_type", None) is not None and "CUDA" in str(avg.device_type):
+        if (dt > 0 and getattr(avg, "device_type", None) is not None and "CUDA" in str(avg.device_type)
+                and not getattr(avg, "is_user_annotation", False)):
             rows.append((dt / 1e3, avg.count, avg.key))
     return rows
 
@@ -799,6 +824,10 @@ def attention_records(device) -> dict:
     cases += [(randn_lm, 1, 32, 32, S, S, 64, True, (bf16,)) for S in buckets[1:3]]
     cases += [(randn_lm, 1, Hq, Hkv, 67, 67, D, True, (f32,))
               for Hq, Hkv, D in ((40, 8, 128), (32, 8, 128), (32, 32, 64))]
+    # and every shape the training path gives it that the cases above miss
+    # (the Trainer's batch 2, the float32 agreement's batch 2 of 128 tokens)
+    have = {c[1:8] + (dt,) for c in cases for dt in c[8]}
+    cases += [(randn_lm,) + c[:7] + ((c[7],),) for c in sorted(train_attention_cases() - have, key=str)]
     err = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
     for (draw, B, Hq, Hkv, Sq, Skv, D, causal, dtypes) in cases:
         for dtype in dtypes:
@@ -1243,6 +1272,370 @@ def phase_agree(device, path=FIXTURE, weights=None) -> None:
         del params, cache, model
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# the training path: the train step and the Trainer on the transformer families
+# --------------------------------------------------------------------------- #
+
+TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_train_ref.npz"  # made by tools/make_torch_train_ref.py
+TRAIN_FIXTURE_KEY = "granite-3-8b@2"  # the torch_lm_ref.npz entry whose numpy weights it shares
+# (name, layers kept, batch, sequence, microbatches, steps, int8 states, one fixed batch)
+TRAIN_RUNS = (
+    ("granite-3-8b", 4, 2, 4096, 2, 5, False, False),  # the main run: train_4k's sequence
+    ("musicgen-large", 48, 1, 4096, 1, 3, False, False),  # full depth: 36.5 GiB of train state
+    ("llama-3.2-vision-11b", 5, 1, 1024, 1, 5, False, True),  # one group: 4 self layers and a cross layer
+    ("llama4-scout-17b-a16e", 1, 1, 1024, 1, 5, True, True),  # 16 experts; int8 moments: 38.6 GiB of state
+)
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAIL_AT = 8, 4, 6
+TRAINER_MODEL, TRAINER_LAYERS, TRAINER_BATCH, TRAINER_SEQ = "musicgen-large", 2, 2, 1024
+BWD_RANGE = "repro_torch::chunked_attention_backward"  # layers.py's profiler range around the backward
+
+
+def train_attention_launches(cfg, steps: int, microbatches: int) -> int:
+    """The attention kernel's launches of ``steps`` train steps under
+    ``remat="full"``: each self layer's forward and its recompute in the
+    backward, and each vlm cross layer's forward (not checkpointed, as in the
+    reference)."""
+    n_cross = cfg.n_layers // cfg.vision.cross_attn_every if cfg.vision else 0
+    return steps * microbatches * (2 * (cfg.n_layers - n_cross) + n_cross)
+
+
+def train_attention_cases() -> set:
+    """Every shape the training path gives the attention kernel, as (B, Hq,
+    Hkv, Sq, Skv, D, causal, dtype): each run of TRAIN_RUNS at its microbatch
+    and the Trainer's in bf16, the float32 agreement at the fixture's batch;
+    causal self layers, and the vlm's cross layers over the patches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    runs = [(name, B // mb, S, torch.bfloat16) for name, _, B, S, mb, *_ in TRAIN_RUNS]
+    runs.append((TRAINER_MODEL, TRAINER_BATCH, TRAINER_SEQ, torch.bfloat16))
+    with np.load(TRAIN_FIXTURE) as ref:
+        runs.append((str(ref["name"]), int(ref["batch"]), int(ref["seq"]), torch.float32))
+    cases = set()
+    for name, B, S, dtype in runs:
+        cfg = get_config(name)
+        cases.add((B, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.hd, True, dtype))
+        if cfg.vision:
+            cases.add((B, cfg.n_heads, cfg.n_kv_heads, S, cfg.vision.n_patches, cfg.hd, False, dtype))
+    return cases
+
+
+def train_bound(cfg, B: int, S: int) -> dict:
+    """A train step's least time: model FLOPs over the bf16 tensor-core peak.
+    6 x the matmul parameters a token meets x tokens (the MoE: its top_k
+    experts and the router; the vlm: the vision projection and the cross
+    layers' k and v on the patches), plus 3 x attention's forward operations
+    (``flash_attention.operations``: causal self layers, the cross layers over
+    the patches)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    d, H, KV, hd, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab_size
+    ncb = cfg.audio.n_codebooks if cfg.audio else 1
+    qo, kv = 2 * d * H * hd, 2 * d * KV * hd
+    if cfg.moe:
+        mlp = cfg.moe.top_k * 3 * d * cfg.moe.d_ff_expert + d * cfg.moe.n_experts
+    else:
+        mlp = (3 if cfg.mlp_type == "swiglu" else 2) * d * cfg.d_ff
+    n_cross = cfg.n_layers // cfg.vision.cross_attn_every if cfg.vision else 0
+    n_self, P = cfg.n_layers - n_cross, (cfg.vision.n_patches if cfg.vision else 0)
+    per_token = n_self * (qo + kv + mlp) + n_cross * (qo + mlp) + d * V * ncb
+    per_patch = cfg.vision.d_vision * d + n_cross * kv if cfg.vision else 0
+    matmul = 6 * (B * S * per_token + B * P * per_patch)
+    attn = 3 * (n_self * fa.operations(B, H, S, S, hd, True) + n_cross * fa.operations(B, H, S, P, hd, False))
+    return {"flops": matmul + attn, "bound_ms": (matmul + attn) / BF16_TC_OPS_PER_S * 1e3}
+
+
+def range_device_ms(prof, name: str) -> tuple[float, int]:
+    """Device time of the kernels that ran inside the device-side spans of the
+    ``record_function`` ranges called ``name`` (one stream: the kernels
+    between a span's start and end are the range's), and the spans seen."""
+    import bisect
+
+    evs = [e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name == name and getattr(e, "is_user_annotation", False))
+    starts = [a for a, _ in spans]
+    total = 0.0
+    for e in evs:
+        if getattr(e, "is_user_annotation", False):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            total += e.time_range.end - e.time_range.start
+    return total / 1e3, len(spans)
+
+
+def state_gib(state) -> float:
+    from repro_torch import tree as tu
+
+    return sum(t.numel() * t.element_size() for t in tu.leaves(state)) / 2**30
+
+
+def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: int, int8: bool,
+              fixed: bool) -> dict:
+    """One model trained ``steps`` steps by ``make_train_step`` (bf16, remat
+    "full", AdamW with warmup_cosine), each timed by the host clock after a
+    sync, then one more step under torch.profiler.  Holds finite losses, a
+    falling loss on a fixed batch, and the attention kernel's launches;
+    prints step ms, tokens/s, the bound, the idle share, the attention
+    backward's share and peak memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_to, make_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    model = build_model(cfg)
+    # a fixed batch takes a larger lr, so that its loss falls within the few steps run
+    opt = AdamWConfig(lr=1e-4 if not fixed else 1e-3, int8_states=int8, schedule=warmup_cosine(2, steps))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, 0, opt, TrainConfig(microbatches=mb), device)
+    torch.cuda.synchronize()
+    depth = "full depth" if n_layers == full.n_layers else f"{n_layers} of {full.n_layers} layers"
+    print(f"  train {name} ({depth}, full width, bf16, remat {cfg.remat}, {'int8' if int8 else 'fp32'} moments): "
+          f"{model.param_count() / 1e9:.3f} B parameters, {state_gib(state):.2f} GiB of train state (params and "
+          f"moments; grads come with the step) drawn in {time.perf_counter() - t0:.2f} s")
+    shape = ShapeConfig("train", S, B, "train")
+    data = [batch_to(make_batch(cfg, shape, s), device) for s in range(1 if fixed else steps + 1)]
+    step_fn = make_train_step(model, opt, TrainConfig(microbatches=mb))
+    before = {k: runtime.LAUNCHES[k] for k in ("flash_attention_sm90", "flash_attention")}
+    ms, losses = [], []
+    for s in range(steps + 1):  # the timed steps, then one under the profiler
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == steps:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, metrics = step_fn(state, data[0 if fixed else s])
+                losses.append(float(metrics["total_loss"]))
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            state, metrics = step_fn(state, data[0 if fixed else s])
+            losses.append(float(metrics["total_loss"]))  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launched = {k: runtime.LAUNCHES[k] - n for k, n in before.items()}
+    want = train_attention_launches(cfg, steps + 1, mb)
+    check(all(math.isfinite(x) for x in losses), f"train {name}: losses {losses}")
+    if fixed:
+        check(losses[-1] < losses[0], f"train {name}: the loss on one fixed batch did not fall: {losses}")
+    check(launched == {"flash_attention_sm90": want, "flash_attention": 0},
+          f"train {name}: attention launches {launched}, want {want} of flash_attention_sm90 (steps x microbatches "
+          f"x (2 a self layer + 1 a cross layer)) and 0 of the float32 kernel")
+    check(all(bool(torch.isfinite(p).all()) for p in state["params"]["layers"].values()),
+          f"train {name}: non-finite parameters")
+    rows = device_rows(prof)
+    busy, n_kern = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    bwd, n_spans = range_device_ms(prof, BWD_RANGE)
+    med = statistics.median(ms[-3:])
+    bound = train_bound(cfg, B, S)
+    tokens = B * S
+    print(f"  train {name}: losses {[round(x, 4) for x in losses]}; step ms {[round(m, 1) for m in ms]}, then one "
+          f"step under the profiler ({prof_ms:.1f} ms)")
+    print(f"  train {name}: median step {med:.3f} ms over the last 3 timed steps, {tokens / med * 1e3:.1f} tokens/s "
+          f"({B} x {S} tokens, {mb} microbatches); bound {bound['bound_ms']:.3f} ms "
+          f"({bound['flops'] / 1e12:.2f} TFLOP over {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s), the step "
+          f"{med / bound['bound_ms']:.2f}x its bound")
+    if busy > 0:
+        share = (f"{bwd:.3f} ms over {n_spans} calls, {bwd / busy:.3f} of device time" if n_spans
+                 else "not measured (the profiler showed no device span of the range)")
+        print(f"  train {name}: profiled step: {n_kern} kernels, device busy {busy:.3f} ms; idle share "
+              f"{max(0.0, 1 - busy / med):.3f} of the median step; the attention backward (plain PyTorch): {share}")
+        print(f"  train {name}: top kernels: " + "; ".join(f"{k[:56]} {t:.3f} ms x{c}"
+                                                             for t, c, k in sorted(rows, reverse=True)[:6]))
+    else:
+        print(f"  train {name}: idle share not measured (the profiler saw no device time)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  train {name}: attention launches {launched} (want {want}); peak device memory {peak:.2f} GiB")
+    out = {"launched": launched, "median_ms": med, "bound_ms": bound["bound_ms"], "losses": losses,
+           "busy_ms": busy, "bwd_ms": bwd, "peak_gib": peak}
+    del state, data, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_backward_ms(device) -> None:
+    """The attention backward alone at the main run's layer shape (q
+    [1,32,4096,128] bf16 over 8 KV heads, causal), by CUDA events, beside
+    the forward kernel: what the training path's profiled share should agree
+    with."""
+    import torch
+
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device.type).manual_seed(K3_SEED)
+    q, k, v, do = (torch.randn(1, h, 4096, 128, generator=gen, device=device).to(torch.bfloat16)
+                   for h in (32, 8, 8, 32))
+    out = layers.flash_attention(q, k, v, causal=True)
+    bwd = queued_ms(lambda: layers.chunked_attention_bwd(q, k, v, out, do, causal=True, scale=128 ** -0.5), 5)
+    fwd = queued_ms(lambda: layers.flash_attention(q, k, v, causal=True), 20)
+    print(f"  attention at the main run's layer shape: backward {bwd:.3f} ms, forward kernel {fwd:.3f} ms a call "
+          f"(events around calls queued behind a spin kernel)")
+
+
+def phase_train(device) -> dict:
+    """The training runs; returns the attention kernel's launches per run."""
+    per_run = {}
+    for run in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        per_run[run[0]] = train_run(device, *run)["launched"]
+        print(f"  train {run[0]}: wall {time.perf_counter() - t0:.1f} s")
+    return per_run
+
+
+def phase_trainer(device) -> dict:
+    """The Trainer: TRAINER_MODEL at full width with TRAINER_LAYERS layers,
+    TRAINER_BATCH x TRAINER_SEQ tokens, 8 steps, checkpoints every 4 into a
+    temporary directory;
+    one run uninterrupted, one with a failure injected at step 6, which must
+    restore from step 4 and end with the same parameters (atol 1e-6).  Runs
+    with deterministic algorithms (cuBLAS's workspace is fixed in ``main``
+    before CUDA starts).  Returns the attention kernel's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.ft import FailureInjector
+    from repro_torch.kernels import runtime
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAINER_MODEL), n_layers=TRAINER_LAYERS)
+    shape = ShapeConfig("trainer", TRAINER_SEQ, TRAINER_BATCH, "train")
+    opt = AdamWConfig(lr=1e-3, schedule=warmup_cosine(2, TRAINER_STEPS))
+    before = runtime.LAUNCHES["flash_attention_sm90"]
+    outs, logs = {}, []
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+            for run, injector in (("uninterrupted", None), ("restarted", FailureInjector(fail_at=(TRAINER_FAIL_AT,)))):
+                t0 = time.perf_counter()
+                tr = Trainer(build_model(cfg), shape, opt,
+                             rcfg=TrainerConfig(steps=TRAINER_STEPS, ckpt_every=TRAINER_CKPT_EVERY,
+                                                ckpt_dir=f"{tmp}/{run}", log_every=0),
+                             injector=injector, log_fn=logs.append, device=device)
+                outs[run] = tr.run()
+                steps = [h["step"] for h in tr.history]
+                print(f"  trainer {run}: steps run {steps}, losses {[round(x, 4) for x in outs[run]['losses']]}, "
+                      f"wall {time.perf_counter() - t0:.1f} s")
+                outs[run]["steps"] = steps
+                shutil.rmtree(f"{tmp}/{run}")  # ~2 GB a checkpoint
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(any(f"restored checkpoint at step {TRAINER_CKPT_EVERY}" in s for s in logs),
+          f"trainer: the restarted run did not restore step {TRAINER_CKPT_EVERY}: {logs}")
+    check(outs["restarted"]["steps"] == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7],
+          f"trainer: steps run {outs['restarted']['steps']}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(tu.leaves_with_path(outs["uninterrupted"]["state"]["params"]),
+                                 tu.leaves_with_path(outs["restarted"]["state"]["params"])):
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    check(worst <= 1e-6, f"trainer: the restarted run's params differ from the uninterrupted run's by {worst:.3g} "
+                         f"(atol 1e-6)")
+    print(f"  trainer: restored from step {TRAINER_CKPT_EVERY} after the failure at step {TRAINER_FAIL_AT}; final "
+          f"params equal the uninterrupted run's within {worst:.3g} (atol 1e-6); stragglers "
+          f"{outs['restarted']['stragglers']}")
+    n = runtime.LAUNCHES["flash_attention_sm90"] - before
+    want = train_attention_launches(cfg, TRAINER_STEPS + len(outs["restarted"]["steps"]), 1)
+    check(n == want, f"trainer: {n} attention launches, want {want}")
+    del outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_sm90": n}
+
+
+def train_distances(got: dict, ref) -> dict:
+    """As tools/make_torch_train_ref.py's ``distances``: how far the port's
+    training numbers are from the fixture, one number a measure."""
+    import numpy as np
+
+    ref_norm = np.asarray(ref["leaf_norm"], np.float64)
+    ref_sample = np.asarray(ref["sample"], np.float64)
+    scale = np.maximum(np.abs(ref_sample).max(1), ref_norm / np.sqrt(np.asarray(ref["leaf_size"], np.float64)))
+    return {
+        "loss": abs(got["loss"] - float(ref["loss"])) / abs(float(ref["loss"])),
+        "grad_norm": abs(got["grad_norm"] - float(ref["grad_norm"])) / float(ref["grad_norm"]),
+        "leaf_norm": float(np.max(np.abs(np.asarray(got["leaf_norm"], np.float64) - ref_norm) / ref_norm)),
+        "sample": float(np.max(np.abs(np.asarray(got["sample"], np.float64) - ref_sample).max(1) / scale)),
+        "history": float(np.max(np.abs(np.asarray(got["history"], np.float64) - ref["history"])
+                                / np.abs(ref["history"]))),
+    }
+
+
+def phase_train_agree(device, weights: dict) -> None:
+    """The port's training numbers on the card, float32, against
+    tests/data/torch_train_ref.npz: granite-3-8b at full width with 2 of 40
+    layers on the weights of torch_lm_ref.npz's granite entry (``weights``
+    maps it to a future, left there for phase_agree), 2 x 128 tokens: the loss, the grad norm, per-leaf
+    grad norms, sampled grads and 3 AdamW steps' losses, each within
+    AGREE_FACTOR x the reference's own spread (at least AGREE_FLOOR)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_to, make_batch
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.optim import AdamWConfig, global_norm, init_opt_state
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    ref = dict(np.load(TRAIN_FIXTURE))
+    cfg = dataclasses.replace(get_config(str(ref["name"])), dtype="float32", n_layers=int(ref["n_layers"]))
+    model = build_model(cfg)
+    params = params_from_numpy(cfg, weights[TRAIN_FIXTURE_KEY].result(), device)
+    # the fixture's batches: make_batch's Zipf stream is numpy's, which may differ between numpy versions
+    shape = ShapeConfig("fixture", int(ref["seq"]), int(ref["batch"]), "train")
+    same = all(np.array_equal(make_batch(cfg, shape, s)["tokens"], ref["tokens"][s]) for s in range(len(ref["tokens"])))
+    print(f"  agree training: make_batch with numpy {np.__version__} "
+          f"{'reproduces' if same else 'does not reproduce'} the fixture's batches (made with numpy {ref['numpy']})")
+    data = [batch_to({"tokens": t, "labels": lab}, device) for t, lab in zip(ref["tokens"], ref["labels"])]
+    live = tu.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss(live, data[0])
+    grads = torch.autograd.grad(loss, tu.leaves(live))
+    paths = [p for p, _ in tu.leaves_with_path(params)]
+    check(paths == [str(x) for x in ref["leaves"]], f"train agreement: leaves {paths}")
+    got = {"loss": float(loss.detach()), "grad_norm": float(global_norm(list(grads))),
+           "leaf_norm": [float(torch.sqrt(torch.sum(torch.square(g)))) for g in grads],  # a tree sum
+           "sample": np.stack([g.reshape(-1)[torch.as_tensor(i, device=device)].cpu().numpy()
+                               for g, i in zip(grads, ref["idx"])])}
+    del live, grads, loss
+    opt = AdamWConfig(lr=float(ref["lr"]))
+    state = {"params": params, "opt": init_opt_state(params, opt),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    step = make_train_step(model, opt)
+    got["history"] = [float(step(state, b)[1]["total_loss"]) for b in data]
+    dist = train_distances(got, ref)
+    spread = dict(zip([str(m) for m in ref["measures"]], ref["spread"]))
+    for k, d in dist.items():
+        bound = max(AGREE_FLOOR, AGREE_FACTOR * float(spread[k]))
+        check(d <= bound, f"train agreement: {k} off the fixture by {d:.3g} (bound {bound:.3g}, spread "
+                          f"{float(spread[k]):.3g})")
+    print(f"  agree training {TRAIN_FIXTURE_KEY} (float32, 2 x {int(ref['seq'])} tokens): loss {got['loss']:.7g} "
+          f"(fixture {float(ref['loss']):.7g}), history {[round(x, 6) for x in got['history']]}; "
+          + ", ".join(f"{k} {d:.3g} (spread {float(spread[k]):.3g})" for k, d in dist.items())
+          + f"; bound {AGREE_FACTOR:g}x the spread, at least {AGREE_FLOOR:g}; wall {time.perf_counter() - t_phase:.1f} s")
+    del state, params, data
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_simulate(device) -> None:
@@ -2369,6 +2762,7 @@ SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
 DESIGN_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
+TRAIN_KERNELS = ("flash_attention_sm90",)  # bf16 attention forward (the backward is plain PyTorch)
 AGREE_KERNELS = ("flash_attention",)  # float32 attention
 META = {  # kernel -> (source, the TPU kernel it replaces)
     "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
@@ -2403,6 +2797,9 @@ def drive(name: str, phases, kernels) -> dict:
 
 
 def main() -> int:
+    # the Trainer's replay runs with deterministic algorithms, for which cuBLAS
+    # needs a fixed workspace, set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2447,9 +2844,23 @@ def main() -> int:
           f"serving path: {launches['flash_attention_sm90']} launches of flash_attention_sm90 (per model "
           f"{served}) and {runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
     print(f"serving path wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = {}
+    for k, n in drive("training", [lambda: trained.update(phase_train(device)),
+                                   lambda: trained.update(trainer=phase_trainer(device))], TRAIN_KERNELS).items():
+        launches[k] += n  # the serving path's and the training path's launches of the bf16 kernel
+    # each run's count was held in phase_train and phase_trainer (2 a self layer a
+    # step, the forward and its recompute; 1 a cross layer); the float32 kernel: 0
+    check(sum(n["flash_attention_sm90"] for n in trained.values()) == runtime.LAUNCHES["flash_attention_sm90"]
+          and runtime.LAUNCHES["flash_attention"] == 0,
+          f"training path: {runtime.LAUNCHES['flash_attention_sm90']} launches of flash_attention_sm90 (per run "
+          f"{trained}) and {runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
+    print(f"training path wall {time.perf_counter() - t0:.1f} s")
+    attention_backward_ms(device)  # after the path's counts are read: its launches count nowhere
     print("agreement with the reference package (fixtures), float32:")
     t0 = time.perf_counter()
     launches.update(drive("agreement", [lambda: phase_agree(device),
+                                        lambda: phase_train_agree(device, lm_weights),
                                         lambda: phase_agree(device, LM_FIXTURE, lm_weights)], AGREE_KERNELS))
     print(f"agreement path wall {time.perf_counter() - t0:.1f} s")
     print("where the time goes:")

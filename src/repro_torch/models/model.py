@@ -14,8 +14,13 @@ Against the reference's structure:
   * the scan kernels return their final state, so :meth:`Model.prefill`
     collects the conv windows and states in the forward itself, with no second
     pass over the prompt;
-  * :meth:`Model.forward` returns (out, caches): the MoE aux losses come with
-    the training stack's loss, not here;
+  * :meth:`Model.forward` returns (out, aux, caches) as the reference does,
+    ``aux`` holding the MoE layers' mean load-balance and z losses (0 for the
+    other families); with gradients on, each layer body runs under
+    ``cfg.remat`` (:func:`_remat`: ``torch.utils.checkpoint``);
+  * :meth:`Model.loss` is the dense, audio, vlm and moe families' training
+    loss; the SSM families have no training path yet (their scan kernels
+    have no backward) and raise;
   * weights are cast to the compute dtype by :meth:`Model.precast`, once at
     load (the serving engine calls it); the functions below cast only leaves
     still in float32, which a precast tree no longer has;
@@ -34,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import runtime
@@ -45,6 +51,31 @@ from repro_torch.models.layers import apply_rope, attention, decode_attention, m
 # numerics-sensitive leaves stay fp32; everything else is cast to the compute dtype
 _KEEP_F32 = {"norm", "ln1", "ln2", "norm_g", "final_norm", "A_log", "dt_bias",
              "D", "conv_b", "conv_w", "attn_gate", "mlp_gate", "router"}
+
+
+# the products whose outputs "dots" keeps (everything else is recomputed)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, mode: str):
+    """``fn`` checkpointed as ``cfg.remat`` says: "full" saves only its
+    inputs and recomputes the body in the backward, "dots" also saves the
+    outputs of its matrix products, "none" saves everything."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat {mode!r}: expected full, dots or none")
+    kw = dict(context_fn=_dots_context) if mode == "dots" else {}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -170,30 +201,43 @@ class Model:
                 collect_cache: bool = False, head: bool = True):
         """Full-sequence forward.  tokens [B, S], or [B, S, ncb] for audio;
         ``vision`` [B, n_patches, d_vision] for the vlm family.  Returns
-        (logits [B, S, (ncb,) V], caches) or, with ``head=False``, (hidden
-        [B, S, d], caches).  With ``collect_cache`` the caches hold each
-        attention layer's k and v [L, B, S, KV, hd], the vlm's cross layers'
-        vision k and v (``xk``, ``xv``), and each SSM layer's conv window and
-        final state (``conv``, ``state``)."""
+        (logits [B, S, (ncb,) V], aux, caches) or, with ``head=False``, (hidden
+        [B, S, d], aux, caches).  ``aux`` is {"moe_aux", "moe_z"}: the mean
+        over the MoE layers of their load-balance and z losses, 0 for the other
+        families.  With ``collect_cache`` the caches hold each attention
+        layer's k and v [L, B, S, KV, hd], the vlm's cross layers' vision k and
+        v (``xk``, ``xv``), and each SSM layer's conv window and final state
+        (``conv``, ``state``).  With gradients on and no cache collected, each
+        layer body (the vlm: each self layer, not the cross layer) runs under
+        ``cfg.remat``."""
         cfg = self.cfg
         dt = _dtype(cfg)
         B, Sq = tokens.shape[:2]
         params = _precast(cfg, params)
         h = T.embed_tokens(cfg, params, tokens, dt)
         positions = torch.arange(Sq, device=h.device).expand(B, Sq)
-        convs, states, ks, vs, xks, xvs = [], [], [], [], [], []
+        convs, states, ks, vs, xks, xvs, las, lzs = [], [], [], [], [], [], [], []
+        remat = cfg.remat if torch.is_grad_enabled() and not collect_cache else "none"
 
-        def self_layer(lp, h):
+        def self_body(lp, h):
             a, (k, v) = T.self_attn_block(cfg, lp, h, positions)
             h = h + a
             if cfg.family == "moe":
-                m, _, _ = T.moe_block(cfg, lp, h)  # the aux losses are the training loss's
-            else:
-                m = T.mlp_block(cfg, lp, h)
+                m, la, lz = T.moe_block(cfg, lp, h)
+                return h + m, k, v, la, lz
+            return h + T.mlp_block(cfg, lp, h), k, v
+
+        body = _remat(self_body, remat)
+
+        def self_layer(lp, h):
+            out = body(lp, h)
+            if cfg.family == "moe":
+                las.append(out[3])
+                lzs.append(out[4])
             if collect_cache:
-                ks.append(k)
-                vs.append(v)
-            return h + m
+                ks.append(out[1])
+                vs.append(out[2])
+            return out[0]
 
         if cfg.family in ("dense", "audio", "moe"):
             for i in range(cfg.n_layers):
@@ -233,9 +277,32 @@ class Model:
             for key, xs in (("conv", convs), ("state", states), ("k", ks), ("v", vs), ("xk", xks), ("xv", xvs)):
                 if xs:
                     caches[key] = torch.stack(xs)
+        zero = torch.zeros((), device=h.device)
+        aux = {"moe_aux": torch.stack(las).mean() if las else zero, "moe_z": torch.stack(lzs).mean() if lzs else zero}
         if not head:
-            return h, caches
-        return T.lm_logits(cfg, params, h), caches
+            return h, aux, caches
+        return T.lm_logits(cfg, params, h), aux, caches
+
+    # --------------------------------------------------------------- loss --
+    def loss(self, params: dict, batch: dict):
+        """The training loss of a batch {"tokens", "labels"[, "vision"]} of
+        tensors: the mean token cross-entropy (``chunked_xent``, chunks of
+        ``max(256, S // 4)``) plus 0.01 x the MoE load-balance loss and 1e-3 x
+        its z-loss.  ``params`` are the float32 masters; the cast to the
+        compute dtype happens inside, so gradients reach the float32 leaves.
+        Returns (total, {"loss", "moe_aux", "moe_z", "tokens"})."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"Model.loss: the {cfg.family!r} family has no training path in repro_torch yet: its scan "
+                "kernels (ssd_chunk_scan, selective_scan) have no backward (ROADMAP.md queue 1, item 5c)")
+        h, aux, _ = self.forward(params, batch["tokens"], vision=batch.get("vision"), head=False)
+        chunk = max(256, h.shape[1] // 4)
+        loss = T.chunked_xent(cfg, params, h, batch["labels"], chunk=chunk)
+        total = loss + 0.01 * aux["moe_aux"] + 1e-3 * aux["moe_z"]
+        metrics = {"loss": loss, "moe_aux": aux["moe_aux"], "moe_z": aux["moe_z"],
+                   "tokens": torch.tensor(float(np.prod(batch["labels"].shape)), device=h.device)}
+        return total, metrics
 
     # ------------------------------------------------------------ caching --
     def cache_dims(self) -> dict:
@@ -297,7 +364,7 @@ class Model:
             raise ValueError(f"prompt of {Sq} tokens exceeds max_len={max_len}")
         true_len = Sq if length is None else int(length)
         params = _precast(cfg, params)
-        h, caches = self.forward(params, tokens, vision=vision, collect_cache=True, head=False)
+        h, _, caches = self.forward(params, tokens, vision=vision, collect_cache=True, head=False)
         # the head at the last true position only (causal: it never sees the padding)
         logits = T.lm_logits(cfg, params, h[:, true_len - 1:true_len])
         cache = {"len": torch.full((B,), true_len, dtype=torch.int64, device=h.device)}
@@ -364,7 +431,7 @@ def build_model(cfg: ModelConfig) -> Model:
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     """The reference's parameter tree as numpy arrays
     (``jax.tree.map(np.asarray, params)``) -> this package's tree on ``device``
-    (None: the card), each leaf checked against its ParamDef."""
+    (None: the card), each leaf a copy checked against its ParamDef."""
     dev = runtime.resolve_device(device)
 
     def walk(defs, sub, path):
@@ -376,7 +443,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
                 arr = arr.astype(np.float32)
             elif not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
                 arr = arr.copy()
-            return torch.from_numpy(arr).to(device=dev, dtype=defs.dtype)
+            # a copy: the train step updates params in place, which must not reach the caller's arrays
+            return torch.from_numpy(arr).to(device=dev, dtype=defs.dtype, copy=True)
         if set(sub) != set(defs):
             raise ValueError(f"{'/'.join(path) or 'params'}: keys {sorted(sub)}, expected {sorted(defs)}")
         return {k: walk(defs[k], sub[k], path + (k,)) for k in sorted(defs)}

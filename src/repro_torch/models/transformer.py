@@ -9,6 +9,9 @@ Layer patterns (run by models/model.py as Python loops over the stacks):
   * vlm: groups of ``cross_attn_every - 1`` self-attention layers followed by
     one cross-attention layer that attends to projected vision patches.
 
+The loss: :func:`xent_loss` on full logits, and :func:`chunked_xent`, which
+never holds more than one sequence chunk's logits.
+
 Against the reference: the MoE block is its single-device branch; the KV
 cache of :func:`self_attn_decode` is written in place.
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import defs as D
@@ -183,7 +187,7 @@ def moe_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
 
 
 # --------------------------------------------------------------------------- #
-# embedding / head
+# embedding / head / loss
 # --------------------------------------------------------------------------- #
 
 
@@ -206,3 +210,42 @@ def lm_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     if not cfg.audio:
         logits = logits[:, :, 0, :]
     return logits.float()
+
+
+def _xent_terms(logits: torch.Tensor, labels: torch.Tensor, ignore: int):
+    """(sum of the kept tokens' cross-entropy, kept-token count), float32;
+    labels [...] against logits [..., V]."""
+    labels = labels.long()
+    lse = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels != ignore).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy; labels broadcast against [..., V] logits,
+    tokens labelled ``ignore`` left out."""
+    tot, cnt = _xent_terms(logits, labels, ignore)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _xent_chunk(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.Tensor, ignore: int):
+    return _xent_terms(lm_logits(cfg, params, h), labels, ignore)
+
+
+def chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.Tensor, chunk: int = 256,
+                 ignore: int = -1) -> torch.Tensor:
+    """Cross-entropy without materializing [B, S, (ncb,) V] logits: the head
+    and the softmax run a sequence chunk at a time, each chunk checkpointed
+    (its logits recomputed in the backward), so peak logits are
+    [B, chunk, (ncb,) V].  The same value and grads as
+    ``xent_loss(lm_logits(h))``.  labels [B, S], or [B, S, ncb] for audio."""
+    S = h.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    tot = cnt = torch.zeros((), device=h.device)
+    for i in range(0, S, c):
+        t, n = checkpoint(_xent_chunk, cfg, params, h[:, i:i + c], labels[:, i:i + c], ignore, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,0 +1,9 @@
+"""The training stack: the train step (loss -> grads -> AdamW) and the
+Trainer (data, checkpoints, restarts, straggler monitoring)."""
+from repro_torch.train.train_step import (  # noqa: F401
+    TrainConfig,
+    abstract_train_state,
+    init_train_state,
+    make_train_step,
+)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: F401

@@ -1,0 +1,99 @@
+"""The train step: loss -> grads -> AdamW, with microbatch gradient
+accumulation and optional error-feedback int8 gradient compression.
+
+``make_train_step`` returns a function (state, batch) -> (state, metrics)
+that updates the state in place (the counterpart of the reference's donated
+state).  Gradients are taken by ``torch.autograd.grad`` with respect to
+detached views of the float32 master parameters, so the graph holds no
+reference to the state that the optimizer then updates.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.data.pipeline import batch_to
+from repro_torch.models import defs as D
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.grad_compress import ef_compress_tree, init_error_buffer
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    compress_grads: bool = False
+
+
+def _state(params, opt_cfg: AdamWConfig, tcfg: TrainConfig) -> dict:
+    dev = tu.leaves(params)[0].device
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if tcfg.compress_grads:
+        state["ef_err"] = init_error_buffer(params)
+    return state
+
+
+def init_train_state(model: Model, seed: int = 0, opt_cfg: AdamWConfig = AdamWConfig(),
+                     tcfg: TrainConfig = TrainConfig(), device=None) -> dict:
+    """{"params", "opt", "step"[, "ef_err"]}: weights drawn on ``device``
+    (None: the card) from ``torch.Generator(device).manual_seed(seed)``, zero
+    moments, step 0."""
+    return _state(model.init(seed, device), opt_cfg, tcfg)
+
+
+def abstract_train_state(model: Model, opt_cfg: AdamWConfig = AdamWConfig(), tcfg: TrainConfig = TrainConfig()):
+    """The train state's structure, shapes and dtypes as tensors on the
+    ``meta`` device: nothing is drawn or allocated."""
+    params = D.map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), model.param_defs())
+    return _state(params, opt_cfg, tcfg)
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig, tcfg: TrainConfig = TrainConfig()):
+    """(state, batch) -> (state, metrics).  The batch (numpy arrays or
+    tensors, leading dim the batch) is split into ``tcfg.microbatches``
+    slices whose grads, loss and metrics are averaged; metrics are the
+    loss's plus ``grad_norm``, ``lr`` and ``total_loss``, 0-d tensors on the
+    device."""
+    mb = tcfg.microbatches
+
+    def grads_of(params, batch):
+        live = tu.tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tu.leaves(live)
+        with torch.enable_grad():
+            total, metrics = model.loss(live, batch)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        batch = batch_to(batch, tu.leaves(params)[0].device)
+        for i in range(mb):
+            sub = {k: x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i] for k, x in batch.items()}
+            l, m, g = grads_of(params, sub)
+            if i == 0:
+                loss, metrics, grads = l, m, g
+            else:
+                loss = loss + l
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+                for a, b in zip(grads, g):
+                    a.add_(b)
+            del g
+        if mb > 1:
+            grads = [g.div_(mb) for g in grads]
+            loss = loss / mb
+            metrics = {k: v / mb for k, v in metrics.items()}
+        grads = tu.unflatten_like(params, grads)
+        if tcfg.compress_grads:
+            grads, new_err = ef_compress_tree(grads, state["ef_err"])
+            with torch.no_grad():
+                for e, n in zip(tu.leaves(state["ef_err"]), tu.leaves(new_err)):
+                    e.copy_(n)
+        _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
+        state["step"] += 1
+        return state, {**metrics, **opt_metrics, "total_loss": loss}
+
+    return train_step

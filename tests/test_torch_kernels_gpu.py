@@ -713,3 +713,42 @@ def test_population_chunk_on_the_card_matches_the_cpu(cuda):
     # logs, which lie near 0 for parameters near 1)
     for got, want in zip(state[0].leaves() + state[1].leaves(), want_state[0].leaves() + want_state[1].leaves()):
         np.testing.assert_allclose(got.exp().cpu().numpy(), want.exp().numpy(), rtol=1e-5)
+
+
+# chunked_attention's gradients: the forward is the attention kernel, the
+# backward plain PyTorch over block pairs; on the card against the same call
+# on the CPU (whose forward is the plain version), at the training path's
+# head widths (bf16 D 64 and 128 on the tensor cores, float32 on the float32
+# pipes), causal, and the vision model's cross-attention over its 1,601
+# patches (prime: K/V padded to 2,048 in the backward and masked)
+TRAIN_ATTN_CASES = [
+    # B, Hq, Hkv, Sq, Skv, D, causal
+    (1, 8, 2, 1024, 1024, 128, True),
+    (2, 8, 8, 512, 512, 64, True),
+    (1, 8, 2, 256, 1601, 128, False),
+]
+_GRAD_TOL = {torch.float32: dict(atol=5e-4, rtol=0.0), torch.bfloat16: dict(atol=2e-2, rtol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", TRAIN_ATTN_CASES)
+def test_chunked_attention_grads_on_the_card_match_the_cpu(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import runtime
+    from repro_torch.models.layers import chunked_attention
+
+    gen = torch.Generator().manual_seed(Sq + Skv + D)
+    base = [torch.randn(B, h, s, D, generator=gen) for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv), (Hq, Sq))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (x.to(dev, dtype).detach().clone().requires_grad_(True) for x in base[:3])
+        before = dict(runtime.LAUNCHES)
+        out = chunked_attention(q, k, v, causal=causal)
+        out.backward(base[3].to(dev, dtype))
+        torch.cuda.synchronize()
+        moved = {n: runtime.LAUNCHES[n] - before[n] for n in ("flash_attention", "flash_attention_sm90")}
+        want = {n: int(dev != "cpu" and n == fa.route(dtype, D)) for n in moved}
+        assert moved == want, (dev, moved)  # one forward launch on the card, none in the backward
+        outs[str(dev)] = [t.detach().float().cpu() for t in (out, q.grad, k.grad, v.grad)]
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), outs[str(cuda)], outs["cpu"]):
+        torch.testing.assert_close(got, ref, **_GRAD_TOL[dtype], msg=lambda m: f"{name}: {m}")

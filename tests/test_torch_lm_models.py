@@ -328,7 +328,7 @@ def runs(request):
     t0, max_len, bucket = 9, 24, 16
     out = {"dtype": dtype, "cfg": tcfg}
     jl, _, _ = jm.forward(jp, jnp.asarray(tokens), vision=jvis)
-    tl, _ = tm.forward(tp, torch.as_tensor(tokens), vision=tvis)
+    tl, _, _ = tm.forward(tp, torch.as_tensor(tokens), vision=tvis)
     out["forward"] = (jl, tl)
     padded = np.concatenate([tokens[:, :t0], np.zeros_like(tokens[:, :bucket - t0])], 1)
     for name, prompt, length in (("exact", tokens[:, :t0], None), ("bucketed", padded, t0)):
@@ -393,7 +393,7 @@ class TestWithinPort:
         tokens = torch.as_tensor(_tokens(cfg, (2, 12), 4))
         vis = _vision(cfg, 2, 5)
         vis = None if vis is None else torch.from_numpy(vis)
-        full, _ = m.forward(params, tokens, vision=vis)
+        full, _, _ = m.forward(params, tokens, vision=vis)
         _, cache = m.prefill(params, tokens[:, :8], max_len=16, vision=vis)
         for t in range(8, 12):
             lg, cache = m.decode_step(params, tokens[:, t:t + 1], cache)

@@ -95,7 +95,7 @@ def runs(request):
     t0, max_len = 9, 16
     out = {"dtype": dtype, "cfg": tcfg, "tm": tm, "tp": tp, "tokens": tokens}
     jl, _, _ = jm.forward(jp, jnp.asarray(tokens))
-    tl, _ = tm.forward(tp, torch.as_tensor(tokens))
+    tl, _, _ = tm.forward(tp, torch.as_tensor(tokens))
     out["forward"] = (jl, tl)
     jlast, jcache = jm.prefill(jp, jnp.asarray(tokens[:, :t0]), max_len=max_len)
     tlast, tcache = tm.prefill(tp, torch.as_tensor(tokens[:, :t0]), max_len=max_len)
@@ -201,7 +201,7 @@ class TestWithinPort:
         m = port_build(cfg)
         params = m.init(seed=1, device="cpu")
         tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)))
-        full, _ = m.forward(params, tokens)
+        full, _, _ = m.forward(params, tokens)
         _, cache = m.prefill(params, tokens[:, :8], max_len=16)
         for t in range(8, 12):
             lg, cache = m.decode_step(params, tokens[:, t:t + 1], cache)

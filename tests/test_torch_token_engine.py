@@ -112,7 +112,7 @@ class TestEngine:
         eng.submit(Request(rid=0, prompt=np.arange(9), max_tokens=2))
         (req,) = eng.run()
         assert seen == [12] and len(req.generated) == 2
-        full, _ = m.forward(params, torch.arange(9)[None])
+        full, _, _ = m.forward(params, torch.arange(9)[None])
         assert req.generated[0] == int(full[0, -1].argmax())
 
     def test_audio_eos_is_all_codebooks(self):
