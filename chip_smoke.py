@@ -29,7 +29,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    dense families' q [1,32,4096,128] over 8 KV heads; attention also at the
    transformer families' shapes: the vision model's cross-attention (not
    causal, 1,601 patches) in prefill and at one query a decode step,
-   llama4-scout's GQA group 5, musicgen's MHA at D 64;
+   llama4-scout's GQA group 5, musicgen's MHA at D 64; the scans' backwards
+   (plain PyTorch from the state entering each of the kernel's chunks) on the
+   card against the same functions on the CPU (computed on a host thread
+   while the phase runs) at falcon-mamba's layer (u [1,4096,8192], N 16) and
+   zamba2's (x [1,4096,64,64], N 64) in bf16 and float32, K5's entering
+   states against its plain version's, each backward's time and memory, and
+   K5's time with and without the entering-state output, in turns;
 4. the simulator path, with the launch counts set to 0 just before and read
    just after:
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
@@ -143,30 +149,41 @@ Phases (each raises on failure, so any failure exits non-zero):
    step ms over the last 3, tokens/s, the step's bound: model FLOPs over
    989 TFLOP/s, the idle share and the plain attention backward's share of
    device time from torch.profiler, peak memory); musicgen-large at full
-   width and depth, 3 steps at 1 x 4,096 x 4 codebooks; llama-3.2-vision-11b
+   width with 24 of 48 layers, 3 steps at 1 x 4,096 x 4 codebooks; llama-3.2-vision-11b
    with 5 of 40 layers and llama4-scout-17b-a16e with 1 of 48 (int8 moments),
-   5 steps each on one fixed batch of 1 x 1,024, whose loss must fall; each
-   run's attention launches equal to steps x microbatches x (2 a self layer,
-   its forward and its recompute, + 1 a cross layer) and none of the float32
-   kernel; then the ``Trainer`` on musicgen-large at full width with 2 of 48
-   layers (2 x 1,024 tokens, 8 steps, checkpoints every 4 into a temporary
+   5 steps each on one fixed batch of 1 x 1,024, whose loss must fall;
+   zamba2-1.2b at full width and depth and falcon-mamba-7b at full width with
+   16 of 64 layers, 3 steps at 1 x 4,096 (each scan backward's share of
+   device time printed); each run's launches equal to steps x microbatches x
+   (attention: 2 a self layer, its forward and its recompute, + 1 a cross
+   layer or a shared block; K4 or K5: 2 an SSM layer) and none of the float32
+   attention kernel; then the ``Trainer`` on musicgen-large at full width with
+   2 of 48 layers (2 x 1,024 tokens, 8 steps, checkpoints every 4 into a temporary
    directory), once uninterrupted and once with a failure injected at step
    6, which must restore from step 4 and end with the uninterrupted run's
    parameters (atol 1e-6; deterministic algorithms, cuBLAS's workspace fixed
    before CUDA starts);
-10. the agreement path, with the launch counts set to 0 just before and read
-   just after: the fixtures tests/data/torch_ssm_ref.npz and
-   tests/data/torch_lm_ref.npz (made by tools/make_torch_ssm_ref.py and
-   tools/make_torch_lm_ref.py from the JAX models on the same numpy weights:
-   granite-3-8b at 2 layers, llama-3.2-vision-11b at 5 with nonzero cross
-   gates and a seeded vision input, musicgen-large at 2, llama4-scout at 1,
-   all at full width) against this package on the card in float32 (prefill
-   logits and 8 teacher-forced decode steps), which runs attention through
-   the float32 kernel; the transformer fixture's numpy weights are made on a
-   host thread from the start of the run; then tests/data/torch_train_ref.npz
-   (made by tools/make_torch_train_ref.py) on the same granite-3-8b weights:
-   the loss, grad norm, per-leaf grad norms, sampled grads and 3 AdamW steps'
-   losses in float32, each within 4x the reference's own spread.
+10. the launch path, with the launch counts set to 0 just before and read
+   just after: ``repro_torch.launch.train --reduced`` on falcon-mamba-7b and
+   ``repro_torch.launch.serve --reduced`` on zamba2-1.2b, as a user runs them;
+11. the agreement path, with the launch counts set to 0 just before and read
+   just after: tests/data/torch_ssm_train_ref.npz (made by
+   tools/make_torch_train_ref.py --ssm: falcon-mamba-7b at 2 layers and
+   zamba2-1.2b at 6, full width, float32, 2 x 128 tokens; the loss, grad
+   norm, per-leaf grad norms, sampled grads and 3 AdamW steps' losses, each
+   within 4x the reference's own spread); the fixtures
+   tests/data/torch_ssm_ref.npz and tests/data/torch_lm_ref.npz (made by
+   tools/make_torch_ssm_ref.py and tools/make_torch_lm_ref.py from the JAX
+   models on the same numpy weights: granite-3-8b at 2 layers,
+   llama-3.2-vision-11b at 5 with nonzero cross gates and a seeded vision
+   input, musicgen-large at 2, llama4-scout at 1, all at full width) against
+   this package on the card in float32 (prefill logits and 8 teacher-forced
+   decode steps), which runs attention through the float32 kernel; the
+   fixtures' numpy weights are made on host threads from the start of the
+   run; then tests/data/torch_train_ref.npz (made by
+   tools/make_torch_train_ref.py) on the same granite-3-8b weights: the loss,
+   grad norm, per-leaf grad norms, sampled grads and 3 AdamW steps' losses in
+   float32, each within 4x the reference's own spread.
 
 The last two lines are a JSON ``kernels`` record and the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -982,12 +999,151 @@ def scan_record(device) -> dict:
     return rec
 
 
-def phase_model_kernels(device) -> dict:
-    """K3-K5 on the card (each kernel's inputs from a generator of its own);
-    returns their records with (ms, method) pairs turned into ms."""
+def _scan_grads(fn, args, cots, dev) -> list:
+    """The gradients of (y, final state) of the scan ``fn`` on ``dev`` at the
+    cotangents ``cots``, on the CPU."""
+    import torch
+
+    xs = [a.detach().to(dev).requires_grad_(True) for a in args]
+    y, state = fn(*xs)
+    return [g.cpu() for g in torch.autograd.grad([y, state], xs, [c.to(dev) for c in cots])]
+
+
+SCAN_GRAD_NAMES = {"selective_scan": ("u", "dt", "A", "B", "C", "D"), "ssd_chunk_scan": ("x", "dt", "A", "B", "C")}
+
+
+def scan_backward_cases() -> list:
+    """The scans' backward checks' cases at the training shapes, drawn on the
+    CPU from seeded generators: (kernel, dtype, inputs, cotangents of y and
+    of the final state), K5 at falcon-mamba's layer and K4 at zamba2's, each
+    in bf16 and float32.  K5's float32 case takes its bf16 case's values:
+    the CPU's bf16 function computes in float32 and casts gu to bf16 at the
+    end, so one float32 run on the CPU (the costly one, ~1 min) serves both
+    (tests/test_torch_ssm_grad.py holds that equality bit for bit)."""
+    import torch
+
+    gen5 = torch.Generator().manual_seed(K5_SEED + 10)
+    randn5 = lambda *s: torch.randn(*s, generator=gen5)  # noqa: E731
+    gen4 = torch.Generator().manual_seed(K4_SEED + 10)
+    randn4 = lambda *s: torch.randn(*s, generator=gen4)  # noqa: E731
+    args, cots = scan_draw(randn5, 4096, torch.bfloat16), (randn5(1, 4096, 8192).bfloat16(), randn5(1, 8192, 16))
+    cases = [("selective_scan", torch.bfloat16, args, cots),
+             ("selective_scan", torch.float32, [a.float() for a in args], [c.float() for c in cots])]
+    cases += [("ssd_chunk_scan", dtype, ssd_draw(randn4, 4096, dtype),
+               (randn4(1, 4096, 64, 64).to(dtype), randn4(1, 64, 64, 64))) for dtype in (torch.bfloat16, torch.float32)]
+    return cases
+
+
+def card_scan_backward_checks(device, cases: list, rec: dict) -> list:
+    """The card's side of each scan's backward check (plain PyTorch from the
+    state entering each of the kernel's chunks): K5's entering states against
+    the plain version's at the same chunking, its y and final state bit for
+    bit those of the launch that writes none; each backward's time (events)
+    and the device memory it takes above its inputs; the gradients on the
+    card, returned (on the host) for ``hold_scan_backward``.  Adds K5's time
+    with the entering-state output, timed in turns with the launch without,
+    to its record."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd, sscan
+
+    fns = {"selective_scan": (sscan.selective_scan, sscan.selective_scan_states_op, ref.selective_scan_bwd,
+                              sscan.CHUNK),
+           "ssd_chunk_scan": (ssd.ssd_chunk_scan, ssd.ssd_chunk_scan_states_op, ref.ssd_scan_bwd, ssd.CHUNK)}
+    out = []
+    for name, dtype, args, cots in cases:
+        fn, states_op, bwd, chunk = fns[name]
+        args, cots = [a.to(device) for a in args], [c.to(device) for c in cots]
+        y, state, entering = states_op(*args)
+        what = f"{name} {tuple(args[0].shape)} {str(dtype)[6:]}"
+        line = ""
+        if name == "selective_scan":
+            y0, s0 = sscan.selective_scan_op(*args)
+            check(torch.equal(y, y0) and torch.equal(state, s0),
+                  f"{what}: y or the final state moved when the entering states were written")
+            _, _, want = ref.selective_scan_states(*args, chunk=chunk)
+            line = f"entering states within {_close(entering, want, 2e-4, 1e-4, f'{what} entering states'):.3g} " \
+                   f"of the plain version's; "
+            del y0, s0, want
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = queued_ms(lambda: bwd(*args, entering, *cots, chunk=chunk), 3)
+        gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del y, state, entering
+        out.append((what, name, _scan_grads(fn, args, cots, device)))
+        del args, cots
+        print(f"  {what}: {line}backward {ms:.3f} ms (events), {gib:.2f} GiB above its inputs")
+    gen5 = torch.Generator(device.type).manual_seed(K5_SEED + 20)
+    u, dt, A, Bm, Cm, D = scan_draw(lambda *s: torch.randn(*s, generator=gen5, device=device), 4096, torch.bfloat16)
+    turns = {"without": [], "with": []}
+    for which in ("without", "with", "with", "without"):
+        op = sscan.selective_scan_op if which == "without" else sscan.selective_scan_states_op
+        turns[which].append(device_ms(lambda: op(u, dt, A, Bm, Cm, D), 20, "selective_scan_kernel")[0])
+    rec["selective_scan"]["ms_with_entering_states"] = statistics.mean(turns["with"])
+    print(f"  selective_scan u[1,4096,8192] bf16, in turns: without the entering states "
+          f"{', '.join(f'{x:.6f}' for x in turns['without'])} ms, with them "
+          f"{', '.join(f'{x:.6f}' for x in turns['with'])} ms")
+    return out
+
+
+def start_cpu_scan_backward(cases: list) -> list:
+    """The same backwards on the CPU, on a host thread while the kernels
+    phase runs (its times are device times; beside the host-bound paths or
+    the training path the thread slowed what they measure).  K5's bf16 case
+    takes its result from the float32 case's (``scan_backward_cases``).
+    Returns a future for each case."""
+    import concurrent.futures
+
+    import torch
+
+    from repro_torch.kernels import ssd, sscan
+
+    def k5_bf16(f32):
+        grads = f32.result()
+        return [grads[0].bfloat16(), *grads[1:]]
+
+    fns = {"selective_scan": sscan.selective_scan, "ssd_chunk_scan": ssd.ssd_chunk_scan}
+    pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="scan-backward-cpu")
+    futures = {(name, dtype): pool.submit(_scan_grads, fns[name], args, cots, "cpu")
+               for name, dtype, args, cots in cases if (name, dtype) != ("selective_scan", torch.bfloat16)}
+    futures["selective_scan", torch.bfloat16] = pool.submit(k5_bf16, futures["selective_scan", torch.float32])
+    pool.shutdown(wait=False)
+    return [futures[name, dtype] for name, dtype, _, _ in cases]
+
+
+def hold_scan_backward(card: list, futures: list) -> None:
+    """Each scan's backward on the card against the same function on the CPU.
+    Tolerances as tests/test_torch_ssm_grad.py's: atol 2e-4 (K5) / 1e-4 (K4)
+    plus rtol 1e-4 of each gradient's largest entry; a bf16 gradient (u's,
+    x's) 2e-2 plus 1e-2 of it (a bf16 step is 2^-8 of the value)."""
+    import torch
+
+    t0 = time.perf_counter()
+    wants = [f.result() for f in futures]
+    print(f"  the CPU's side: {time.perf_counter() - t0:.1f} s waited for it")
+    for (what, name, got), want in zip(card, wants):
+        atol = 2e-4 if name == "selective_scan" else 1e-4
+        worst = 0.0
+        for n, g, w in zip(SCAN_GRAD_NAMES[name], got, want):
+            scale = float(w.float().abs().max())
+            tol = atol + 1e-4 * scale if g.dtype == torch.float32 else 2e-2 + 1e-2 * scale
+            err = float((g.double() - w.double()).abs().max())
+            check(bool(torch.isfinite(g.float()).all()) and err <= tol,
+                  f"{what} backward: the gradient of {n} on the card off the CPU's by {err:.3g} (bound {tol:.3g})")
+            worst = max(worst, err / tol)
+        print(f"  {what}: backward on the card within {worst:.3g} of its bound from the CPU's")
+
+
+def phase_model_kernels(device, scan_cases: list, cpu: list) -> dict:
+    """K3-K5 on the card (each kernel's inputs from a generator of its own),
+    and the scans' backwards on ``scan_cases`` on the card against the CPU
+    (``cpu``: the futures of ``start_cpu_scan_backward``); returns the
+    records with (ms, method) pairs turned into ms."""
     rec = attention_records(device)
     rec["ssd_chunk_scan"] = ssd_record(device)
     rec["selective_scan"] = scan_record(device)
+    hold_scan_backward(card_scan_backward_checks(device, scan_cases, rec), cpu)
     for r in rec.values():  # (ms, method) pairs -> ms
         r["ms_method"] = r["ms"][1]
         r["ms"], r["plain_ms"] = r["ms"][0], r["plain_ms"][0]
@@ -1283,22 +1439,41 @@ TRAIN_FIXTURE_KEY = "granite-3-8b@2"  # the torch_lm_ref.npz entry whose numpy w
 # (name, layers kept, batch, sequence, microbatches, steps, int8 states, one fixed batch)
 TRAIN_RUNS = (
     ("granite-3-8b", 4, 2, 4096, 2, 5, False, False),  # the main run: train_4k's sequence
-    ("musicgen-large", 48, 1, 4096, 1, 3, False, False),  # full depth: 36.5 GiB of train state
+    ("musicgen-large", 24, 1, 4096, 1, 3, False, False),  # 24 of 48 layers: at full depth the script passed 600 s
     ("llama-3.2-vision-11b", 5, 1, 1024, 1, 5, False, True),  # one group: 4 self layers and a cross layer
     ("llama4-scout-17b-a16e", 1, 1, 1024, 1, 5, True, True),  # 16 experts; int8 moments: 38.6 GiB of state
+    ("zamba2-1.2b", 38, 1, 4096, 1, 3, False, False),  # full depth: 1.183 B parameters, 17.6 GiB with grads
+    ("falcon-mamba-7b", 16, 1, 4096, 1, 3, False, False),  # 16 of 64 layers: 2.218 B parameters, 33.0 GiB
 )
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAIL_AT = 8, 4, 6
 TRAINER_MODEL, TRAINER_LAYERS, TRAINER_BATCH, TRAINER_SEQ = "musicgen-large", 2, 2, 1024
 BWD_RANGE = "repro_torch::chunked_attention_backward"  # layers.py's profiler range around the backward
+# the SSM families' training numbers from the reference (tools/make_torch_train_ref.py --ssm), one entry a
+# model; their numpy weights are torch_ssm_ref.npz's entries of the same name
+SSM_TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_ssm_train_ref.npz"
 
 
 def train_attention_launches(cfg, steps: int, microbatches: int) -> int:
     """The attention kernel's launches of ``steps`` train steps under
     ``remat="full"``: each self layer's forward and its recompute in the
-    backward, and each vlm cross layer's forward (not checkpointed, as in the
-    reference)."""
+    backward, each vlm cross layer's forward and each of the hybrid's shared
+    blocks' (neither checkpointed, as in the reference); none in the ssm
+    family."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return steps * microbatches * (cfg.n_layers // cfg.hybrid.attn_every)
     n_cross = cfg.n_layers // cfg.vision.cross_attn_every if cfg.vision else 0
     return steps * microbatches * (2 * (cfg.n_layers - n_cross) + n_cross)
+
+
+def train_scan_launches(cfg, steps: int, microbatches: int) -> dict:
+    """The scan kernels' launches of ``steps`` train steps under
+    ``remat="full"``: each SSM layer's forward and its recompute in the
+    backward (the backward itself launches none); K4 in the hybrid, K5 in the
+    ssm family."""
+    n = steps * microbatches * 2 * cfg.n_layers
+    return {"ssd_chunk_scan": n if cfg.family == "hybrid" else 0, "selective_scan": n if cfg.family == "ssm" else 0}
 
 
 def train_attention_cases() -> set:
@@ -1315,9 +1490,14 @@ def train_attention_cases() -> set:
     runs.append((TRAINER_MODEL, TRAINER_BATCH, TRAINER_SEQ, torch.bfloat16))
     with np.load(TRAIN_FIXTURE) as ref:
         runs.append((str(ref["name"]), int(ref["batch"]), int(ref["seq"]), torch.float32))
+    with np.load(SSM_TRAIN_FIXTURE) as ref:
+        runs += [(str(ref[f"{k}/name"]), int(ref[f"{k}/batch"]), int(ref[f"{k}/seq"]), torch.float32)
+                 for k in ref["entries"]]
     cases = set()
     for name, B, S, dtype in runs:
         cfg = get_config(name)
+        if cfg.family == "ssm":  # no attention
+            continue
         cases.add((B, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.hd, True, dtype))
         if cfg.vision:
             cases.add((B, cfg.n_heads, cfg.n_kv_heads, S, cfg.vision.n_patches, cfg.hd, False, dtype))
@@ -1328,12 +1508,26 @@ def train_bound(cfg, B: int, S: int) -> dict:
     """A train step's least time: model FLOPs over the bf16 tensor-core peak.
     6 x the matmul parameters a token meets x tokens (the MoE: its top_k
     experts and the router; the vlm: the vision projection and the cross
-    layers' k and v on the patches), plus 3 x attention's forward operations
-    (``flash_attention.operations``: causal self layers, the cross layers over
-    the patches)."""
+    layers' k and v on the patches; the SSM families: each layer's
+    projections and the hybrid's shared block at each of its applications),
+    plus 3 x attention's forward operations (``flash_attention.operations``:
+    causal self layers and shared blocks, the cross layers over the patches).
+    The scans' own operations (float32, ~0.4% of a falcon-mamba layer's) are
+    not counted."""
     from repro_torch.kernels import flash_attention as fa
 
     d, H, KV, hd, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab_size
+    if cfg.family in ("ssm", "hybrid"):
+        di, N = cfg.d_inner, cfg.ssm.d_state
+        if cfg.family == "ssm":
+            layer, n_shared, shared = d * 2 * di + di * (cfg.dt_rank + 2 * N) + cfg.dt_rank * di + di * d, 0, 0
+        else:
+            layer = d * (2 * di + 2 * N + di // cfg.ssm.head_dim) + di * d
+            n_shared = cfg.n_layers // cfg.hybrid.attn_every
+            shared = 2 * d * (H + 2 * KV) * hd + H * hd * d + 3 * d * cfg.hybrid.shared_attn_mlp_ff
+        matmul = 6 * B * S * (cfg.n_layers * layer + n_shared * shared + d * V)
+        attn = 3 * n_shared * fa.operations(B, H, S, S, hd, True) if n_shared else 0
+        return {"flops": matmul + attn, "bound_ms": (matmul + attn) / BF16_TC_OPS_PER_S * 1e3}
     ncb = cfg.audio.n_codebooks if cfg.audio else 1
     qo, kv = 2 * d * H * hd, 2 * d * KV * hd
     if cfg.moe:
@@ -1349,24 +1543,27 @@ def train_bound(cfg, B: int, S: int) -> dict:
     return {"flops": matmul + attn, "bound_ms": (matmul + attn) / BF16_TC_OPS_PER_S * 1e3}
 
 
-def range_device_ms(prof, name: str) -> tuple[float, int]:
-    """Device time of the kernels that ran inside the device-side spans of the
-    ``record_function`` ranges called ``name`` (one stream: the kernels
-    between a span's start and end are the range's), and the spans seen."""
+def range_device_ms(prof, names) -> dict[str, tuple[float, int]]:
+    """For each name: the device time of the kernels that ran inside the
+    device-side spans of the ``record_function`` ranges so called (one
+    stream: the kernels between a span's start and end are the range's), and
+    the spans seen; one pass over the profile's device events."""
     import bisect
 
     evs = [e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
-                   if e.name == name and getattr(e, "is_user_annotation", False))
-    starts = [a for a, _ in spans]
-    total = 0.0
-    for e in evs:
-        if getattr(e, "is_user_annotation", False):
-            continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start < spans[i][1]:
-            total += e.time_range.end - e.time_range.start
-    return total / 1e3, len(spans)
+    kernels = [e.time_range for e in evs if not getattr(e, "is_user_annotation", False)]
+    out = {}
+    for name in names:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                       if e.name == name and getattr(e, "is_user_annotation", False))
+        starts = [a for a, _ in spans]
+        total = 0.0
+        for r in kernels:
+            i = bisect.bisect_right(starts, r.start) - 1
+            if i >= 0 and r.start < spans[i][1]:
+                total += r.end - r.start
+        out[name] = (total / 1e3, len(spans))
+    return out
 
 
 def state_gib(state) -> float:
@@ -1380,9 +1577,9 @@ def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: 
     """One model trained ``steps`` steps by ``make_train_step`` (bf16, remat
     "full", AdamW with warmup_cosine), each timed by the host clock after a
     sync, then one more step under torch.profiler.  Holds finite losses, a
-    falling loss on a fixed batch, and the attention kernel's launches;
-    prints step ms, tokens/s, the bound, the idle share, the attention
-    backward's share and peak memory."""
+    falling loss on a fixed batch, and the attention and scan kernels'
+    launches; prints step ms, tokens/s, the bound, the idle share, the
+    attention backward's and each scan backward's share and peak memory."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1390,11 +1587,12 @@ def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import batch_to, make_batch
-    from repro_torch.kernels import runtime
+    from repro_torch.kernels import runtime, ssd, sscan
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, warmup_cosine
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
+    scan_ranges = {"ssd_chunk_scan": ssd.BACKWARD_RANGE, "selective_scan": sscan.BACKWARD_RANGE}
     full = get_config(name)
     cfg = dataclasses.replace(full, n_layers=n_layers)
     model = build_model(cfg)
@@ -1411,7 +1609,7 @@ def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: 
     shape = ShapeConfig("train", S, B, "train")
     data = [batch_to(make_batch(cfg, shape, s), device) for s in range(1 if fixed else steps + 1)]
     step_fn = make_train_step(model, opt, TrainConfig(microbatches=mb))
-    before = {k: runtime.LAUNCHES[k] for k in ("flash_attention_sm90", "flash_attention")}
+    before = {k: runtime.LAUNCHES[k] for k in ("flash_attention_sm90", "flash_attention", *scan_ranges)}
     ms, losses = [], []
     for s in range(steps + 1):  # the timed steps, then one under the profiler
         torch.cuda.synchronize()
@@ -1426,18 +1624,22 @@ def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: 
             losses.append(float(metrics["total_loss"]))  # waits for the step
             ms.append((time.perf_counter() - t0) * 1e3)
     launched = {k: runtime.LAUNCHES[k] - n for k, n in before.items()}
-    want = train_attention_launches(cfg, steps + 1, mb)
+    want = {"flash_attention_sm90": train_attention_launches(cfg, steps + 1, mb), "flash_attention": 0,
+            **train_scan_launches(cfg, steps + 1, mb)}
     check(all(math.isfinite(x) for x in losses), f"train {name}: losses {losses}")
     if fixed:
         check(losses[-1] < losses[0], f"train {name}: the loss on one fixed batch did not fall: {losses}")
-    check(launched == {"flash_attention_sm90": want, "flash_attention": 0},
-          f"train {name}: attention launches {launched}, want {want} of flash_attention_sm90 (steps x microbatches "
-          f"x (2 a self layer + 1 a cross layer)) and 0 of the float32 kernel")
+    check(launched == want,
+          f"train {name}: launches {launched}, want {want} (steps x microbatches x: attention 2 a self layer + 1 a "
+          f"cross layer or shared block; a scan 2 an SSM layer; none of the float32 attention kernel)")
     check(all(bool(torch.isfinite(p).all()) for p in state["params"]["layers"].values()),
           f"train {name}: non-finite parameters")
     rows = device_rows(prof)
     busy, n_kern = sum(r[0] for r in rows), sum(r[1] for r in rows)
-    bwd, n_spans = range_device_ms(prof, BWD_RANGE)
+    ranges = {k: r for k, r in (("flash_attention_sm90", BWD_RANGE), *scan_ranges.items()) if want[k]}
+    spans = range_device_ms(prof, ranges.values())
+    bwd, n_spans = spans.get(BWD_RANGE, (0.0, 0))
+    scan_bwd = {k: spans[r] for k, r in scan_ranges.items() if want[k]}
     med = statistics.median(ms[-3:])
     bound = train_bound(cfg, B, S)
     tokens = B * S
@@ -1448,16 +1650,20 @@ def train_run(device, name: str, n_layers: int, B: int, S: int, mb: int, steps: 
           f"({bound['flops'] / 1e12:.2f} TFLOP over {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s), the step "
           f"{med / bound['bound_ms']:.2f}x its bound")
     if busy > 0:
-        share = (f"{bwd:.3f} ms over {n_spans} calls, {bwd / busy:.3f} of device time" if n_spans
-                 else "not measured (the profiler showed no device span of the range)")
+        def share(ms_, n_):
+            return (f"{ms_:.3f} ms over {n_} calls, {ms_ / busy:.3f} of device time" if n_
+                    else "not measured (the profiler showed no device span of the range)")
+
+        shares = "; ".join(f"the {k} backward (plain PyTorch): {share(*v)}" for k, v in scan_bwd.items())
+        attn = f"the attention backward (plain PyTorch): {share(bwd, n_spans)}" if want["flash_attention_sm90"] else ""
         print(f"  train {name}: profiled step: {n_kern} kernels, device busy {busy:.3f} ms; idle share "
-              f"{max(0.0, 1 - busy / med):.3f} of the median step; the attention backward (plain PyTorch): {share}")
+              f"{max(0.0, 1 - busy / med):.3f} of the median step; " + "; ".join(x for x in (attn, shares) if x))
         print(f"  train {name}: top kernels: " + "; ".join(f"{k[:56]} {t:.3f} ms x{c}"
                                                              for t, c, k in sorted(rows, reverse=True)[:6]))
     else:
         print(f"  train {name}: idle share not measured (the profiler saw no device time)")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  train {name}: attention launches {launched} (want {want}); peak device memory {peak:.2f} GiB")
+    print(f"  train {name}: launches {launched} (want {want}); peak device memory {peak:.2f} GiB")
     out = {"launched": launched, "median_ms": med, "bound_ms": bound["bound_ms"], "losses": losses,
            "busy_ms": busy, "bwd_ms": bwd, "peak_gib": peak}
     del state, data, metrics
@@ -1579,12 +1785,21 @@ def train_distances(got: dict, ref) -> dict:
     }
 
 
-def phase_train_agree(device, weights: dict) -> None:
-    """The port's training numbers on the card, float32, against
-    tests/data/torch_train_ref.npz: granite-3-8b at full width with 2 of 40
-    layers on the weights of torch_lm_ref.npz's granite entry (``weights``
-    maps it to a future, left there for phase_agree), 2 x 128 tokens: the loss, the grad norm, per-leaf
-    grad norms, sampled grads and 3 AdamW steps' losses, each within
+def fixture_entry(ref: dict, key: str | None) -> dict:
+    """A fixture's fields, or one entry's of a fixture that keys them
+    ``"<entry>/<field>"``."""
+    return ref if key is None else {k[len(key) + 1:]: v for k, v in ref.items() if k.startswith(f"{key}/")}
+
+
+def phase_train_agree(device, weights: dict, path=TRAIN_FIXTURE, key: str | None = None) -> None:
+    """The port's training numbers on the card, float32, against a training
+    fixture: tests/data/torch_train_ref.npz (``key`` None: granite-3-8b at
+    full width with 2 of 40 layers on the weights of torch_lm_ref.npz's
+    granite entry) or an entry of SSM_TRAIN_FIXTURE (falcon-mamba-7b at 2 of
+    64 layers, zamba2-1.2b at 6 of 38, on torch_ssm_ref.npz's entries of the
+    same name); ``weights`` maps the entry to a future of its numpy weights,
+    left there for phase_agree.  2 x 128 tokens: the loss, the grad norm,
+    per-leaf grad norms, sampled grads and 3 AdamW steps' losses, each within
     AGREE_FACTOR x the reference's own spread (at least AGREE_FLOOR)."""
     import numpy as np
     import torch
@@ -1598,14 +1813,15 @@ def phase_train_agree(device, weights: dict) -> None:
     from repro_torch.train import make_train_step
 
     t_phase = time.perf_counter()
-    ref = dict(np.load(TRAIN_FIXTURE))
+    ref = fixture_entry(dict(np.load(path)), key)
+    label = key or TRAIN_FIXTURE_KEY
     cfg = dataclasses.replace(get_config(str(ref["name"])), dtype="float32", n_layers=int(ref["n_layers"]))
     model = build_model(cfg)
-    params = params_from_numpy(cfg, weights[TRAIN_FIXTURE_KEY].result(), device)
+    params = params_from_numpy(cfg, weights[label].result(), device)
     # the fixture's batches: make_batch's Zipf stream is numpy's, which may differ between numpy versions
     shape = ShapeConfig("fixture", int(ref["seq"]), int(ref["batch"]), "train")
     same = all(np.array_equal(make_batch(cfg, shape, s)["tokens"], ref["tokens"][s]) for s in range(len(ref["tokens"])))
-    print(f"  agree training: make_batch with numpy {np.__version__} "
+    print(f"  agree training {label}: make_batch with numpy {np.__version__} "
           f"{'reproduces' if same else 'does not reproduce'} the fixture's batches (made with numpy {ref['numpy']})")
     data = [batch_to({"tokens": t, "labels": lab}, device) for t, lab in zip(ref["tokens"], ref["labels"])]
     live = tu.tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -1629,13 +1845,32 @@ def phase_train_agree(device, weights: dict) -> None:
         bound = max(AGREE_FLOOR, AGREE_FACTOR * float(spread[k]))
         check(d <= bound, f"train agreement: {k} off the fixture by {d:.3g} (bound {bound:.3g}, spread "
                           f"{float(spread[k]):.3g})")
-    print(f"  agree training {TRAIN_FIXTURE_KEY} (float32, 2 x {int(ref['seq'])} tokens): loss {got['loss']:.7g} "
+    print(f"  agree training {label} (float32, 2 x {int(ref['seq'])} tokens): loss {got['loss']:.7g} "
           f"(fixture {float(ref['loss']):.7g}), history {[round(x, 6) for x in got['history']]}; "
           + ", ".join(f"{k} {d:.3g} (spread {float(spread[k]):.3g})" for k, d in dist.items())
           + f"; bound {AGREE_FACTOR:g}x the spread, at least {AGREE_FLOOR:g}; wall {time.perf_counter() - t_phase:.1f} s")
     del state, params, data
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_launch(device) -> None:
+    """The launchers as a user runs them, on the card: ``repro_torch.launch.train
+    --reduced`` on falcon-mamba-7b (4 steps, 2 x 256 tokens) and
+    ``repro_torch.launch.serve --reduced`` on zamba2-1.2b (4 requests of 8
+    tokens); finite losses, every request answered."""
+    from repro_torch.launch import serve, train
+
+    t0 = time.perf_counter()
+    out = train.main(["--arch", "falcon-mamba-7b", "--reduced", "--steps", "4", "--batch", "2", "--seq", "256",
+                      "--warmup", "1"])
+    check(len(out["losses"]) == 4 and all(math.isfinite(x) for x in out["losses"]),
+          f"launch.train: losses {out['losses']}")
+    done = serve.main(["--arch", "zamba2-1.2b", "--reduced", "--requests", "4", "--max-tokens", "8"])
+    check(len(done) == 4 and all(len(r.generated) == 8 for r in done),
+          f"launch.serve: {[(r.rid, len(r.generated)) for r in done]}")
+    print(f"  launchers: train losses {[round(x, 4) for x in out['losses']]}, 4 requests served; wall "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_simulate(device) -> None:
@@ -2762,8 +2997,11 @@ SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
 DESIGN_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
-TRAIN_KERNELS = ("flash_attention_sm90",)  # bf16 attention forward (the backward is plain PyTorch)
-AGREE_KERNELS = ("flash_attention",)  # float32 attention
+# bf16 attention and the scans, forward (their backwards are plain PyTorch)
+TRAIN_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
+# the reduced configs' bf16 heads of 16 go to the float32-pipe attention kernel
+LAUNCH_KERNELS = ("selective_scan", "ssd_chunk_scan", "flash_attention")
+AGREE_KERNELS = ("flash_attention", "ssd_chunk_scan", "selective_scan")  # float32 attention and the scans
 META = {  # kernel -> (source, the TPU kernel it replaces)
     "affine_scan": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
     "mapper_carries": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
@@ -2811,12 +3049,17 @@ def main() -> int:
     device = runtime.resolve_device(None)
     smi = phase_env()
     phase_build()
-    # the agreement path's numpy weights for the transformer fixture, made on a
-    # host thread while the other paths run
+    # the agreement path's numpy weights for the transformer and SSM fixtures,
+    # made on host threads while the other paths run
     lm_weights = prefetch_agree_weights(LM_FIXTURE)
+    ssm_weights = prefetch_agree_weights(FIXTURE)
     print("kernels against their plain versions:")
+    # the CPU's side of the scans' backward checks, on a host thread while the kernels are checked
+    scan_cases = scan_backward_cases()
+    scan_cpu = start_cpu_scan_backward(scan_cases)
     rec = phase_kernels(device)
-    rec.update(phase_model_kernels(device))
+    rec.update(phase_model_kernels(device, scan_cases, scan_cpu))
+    del scan_cases, scan_cpu
 
     launches = drive("simulator", [lambda: phase_simulate(device), lambda: phase_optimize(device),
                                    lambda: phase_no_streaming(device), lambda: phase_population(device)],
@@ -2848,20 +3091,32 @@ def main() -> int:
     trained = {}
     for k, n in drive("training", [lambda: trained.update(phase_train(device)),
                                    lambda: trained.update(trainer=phase_trainer(device))], TRAIN_KERNELS).items():
-        launches[k] += n  # the serving path's and the training path's launches of the bf16 kernel
-    # each run's count was held in phase_train and phase_trainer (2 a self layer a
-    # step, the forward and its recompute; 1 a cross layer); the float32 kernel: 0
-    check(sum(n["flash_attention_sm90"] for n in trained.values()) == runtime.LAUNCHES["flash_attention_sm90"]
+        launches[k] += n  # the serving path's and the training path's launches of the bf16 kernel and the scans
+    # each run's counts were held in phase_train and phase_trainer (attention: 2 a
+    # self layer a step, the forward and its recompute, 1 a cross layer or shared
+    # block; a scan: 2 an SSM layer); the float32 kernel: 0
+    check(all(sum(n.get(k, 0) for n in trained.values()) == runtime.LAUNCHES[k] for k in TRAIN_KERNELS)
           and runtime.LAUNCHES["flash_attention"] == 0,
-          f"training path: {runtime.LAUNCHES['flash_attention_sm90']} launches of flash_attention_sm90 (per run "
-          f"{trained}) and {runtime.LAUNCHES['flash_attention']} of the float32 kernel (want 0)")
+          f"training path: launches {dict(runtime.LAUNCHES)} against the runs' {trained} (the float32 attention "
+          f"kernel: want 0)")
     print(f"training path wall {time.perf_counter() - t0:.1f} s")
     attention_backward_ms(device)  # after the path's counts are read: its launches count nowhere
+    t0 = time.perf_counter()
+    for k, n in drive("launch", [lambda: phase_launch(device)], LAUNCH_KERNELS).items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"launch path wall {time.perf_counter() - t0:.1f} s")
     print("agreement with the reference package (fixtures), float32:")
     t0 = time.perf_counter()
-    launches.update(drive("agreement", [lambda: phase_agree(device),
-                                        lambda: phase_train_agree(device, lm_weights),
-                                        lambda: phase_agree(device, LM_FIXTURE, lm_weights)], AGREE_KERNELS))
+    import numpy as np
+
+    with np.load(SSM_TRAIN_FIXTURE) as ref:
+        ssm_train_keys = [str(k) for k in ref["entries"]]
+    for k, n in drive("agreement", [*(lambda key=key: phase_train_agree(device, ssm_weights, SSM_TRAIN_FIXTURE, key)
+                                      for key in ssm_train_keys),
+                                    lambda: phase_agree(device, FIXTURE, ssm_weights),
+                                    lambda: phase_train_agree(device, lm_weights),
+                                    lambda: phase_agree(device, LM_FIXTURE, lm_weights)], AGREE_KERNELS).items():
+        launches[k] = launches.get(k, 0) + n
     print(f"agreement path wall {time.perf_counter() - t0:.1f} s")
     print("where the time goes:")
     phase_profile(device, dse)
@@ -2879,7 +3134,8 @@ def main() -> int:
             launches=launches[kernel], max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=bound, bound_by=by, bound_terms_ms=terms, library_ms=r.get("library_ms"),
         ))
-        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape", "bound_ms_by_shape"):
+        for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape", "bound_ms_by_shape",
+                    "ms_with_entering_states"):
             if key in r:
                 kernels[-1][key] = r[key]
         host = f", host path {r['host_ms']:.6f} ms per call" if "host_ms" in r else ""

@@ -2,7 +2,10 @@
 //   s_t = exp(dt_t A_cn) s_{t-1} + dt_t u_t B_tn;   y_t = sum_n C_tn s_tn + D_c u_t
 // u [Bt, S, C] (float32 or bfloat16), dt [Bt, S, C], A [C, N], B and C [Bt, S, N],
 // D [C] (float32).  Writes y [Bt, S, C] in u's type and the final state
-// [Bt, C, N] in float32.  The state starts at zero.  N <= 16, any S, C, Bt.
+// [Bt, C, N] in float32, and, where the caller passes a buffer for them (the
+// training path's backward starts from them), the state entering each chunk of
+// kChunk steps, [Bt, ceil(S / kChunk), C, N] float32.  The state starts at
+// zero.  N <= 16, any S, C, Bt.
 //
 // Replaces the TPU kernel src/repro/kernels/sscan.py::selective_scan_pallas
 // (_scan_kernel), which keeps a [block_c, N] state in scratch memory across a
@@ -127,8 +130,8 @@ template <typename T, bool kTma>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const __grid_constant__ Maps maps, const T* __restrict__ u, const float* __restrict__ dt,
                       const float* __restrict__ A, const float* __restrict__ Bm, const float* __restrict__ Cm,
-                      const float* __restrict__ Dv, T* __restrict__ y, float* __restrict__ state_out, int S, int C,
-                      int N) {
+                      const float* __restrict__ Dv, T* __restrict__ y, float* __restrict__ state_out,
+                      float* __restrict__ entering, int S, int C, int N) {
   using Z = Smem<T>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);  // TMA boxes: 128-byte aligned
@@ -197,6 +200,13 @@ selective_scan_kernel(const __grid_constant__ Maps maps, const T* __restrict__ u
   }
   for (int q = 0; q < nq; ++q) {
     const int st = q % kStages;
+    if (entering != nullptr && live) {  // the state entering chunk q, this thread's 2 states of its channel
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        const int n = kNS * g + j;
+        if (n < N) entering[((static_cast<long long>(b) * nq + q) * C + c) * N + n] = s[j];
+      }
+    }
     if constexpr (kTma) {
       mbar_wait(bar0 + 8 * st, (q / kStages) & 1);
       if (tid == 0) bulk_wait_read();  // the y tile stored two chunks ago has left its buffer
@@ -297,7 +307,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, in
 
 template <typename T>
 int launch_typed(const void* u, const float* dt, const float* A, const float* Bm, const float* Cm, const float* Dv,
-                 void* y, float* state, int Bt, int S, int C, int N, cudaStream_t stream) {
+                 void* y, float* state, float* entering, int Bt, int S, int C, int N, cudaStream_t stream) {
   const auto aligned = [](const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; };
   // TMA takes rows whose strides are multiples of 16 bytes, from 16-byte aligned bases
   const bool tma = C % 8 == 0 && N == kMaxN && S > 0 && aligned(u) && aligned(dt) && aligned(Bm) &&
@@ -318,20 +328,21 @@ int launch_typed(const void* u, const float* dt, const float* A, const float* Bm
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<dim3((C + kW - 1) / kW, Bt), kThreads, Smem<T>::kBytes, stream>>>(
-      maps, static_cast<const T*>(u), dt, A, Bm, Cm, Dv, static_cast<T*>(y), state, S, C, N);
+      maps, static_cast<const T*>(u), dt, A, Bm, Cm, Dv, static_cast<T*>(y), state, entering, S, C, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // u [Bt, S, C] and y (bf16 != 0: bfloat16, else float32); dt [Bt, S, C], A [C, N],
-// B and C [Bt, S, N], D [C], state [Bt, C, N] float32; all contiguous.  N <= 16.
+// B and C [Bt, S, N], D [C], state [Bt, C, N] float32; entering null or
+// [Bt, ceil(S / 48), C, N] float32; all contiguous.  N <= 16.
 extern "C" int selective_scan_launch(const void* u, const float* dt, const float* A, const float* Bm,
-                                     const float* Cm, const float* Dv, void* y, float* state, int Bt, int S,
-                                     int C, int N, int bf16, void* stream) {
+                                     const float* Cm, const float* Dv, void* y, float* state, float* entering,
+                                     int Bt, int S, int C, int N, int bf16, void* stream) {
   if (Bt <= 0 || C <= 0) return 0;
   if (N <= 0 || N > kMaxN || Bt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_typed<__nv_bfloat16>(u, dt, A, Bm, Cm, Dv, y, state, Bt, S, C, N, s);
-  return launch_typed<float>(u, dt, A, Bm, Cm, Dv, y, state, Bt, S, C, N, s);
+  if (bf16) return launch_typed<__nv_bfloat16>(u, dt, A, Bm, Cm, Dv, y, state, entering, Bt, S, C, N, s);
+  return launch_typed<float>(u, dt, A, Bm, Cm, Dv, y, state, entering, Bt, S, C, N, s);
 }

@@ -338,31 +338,241 @@ def selective_scan_reference(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y.to(u.dtype) if dtype == torch.float32 else y), state
 
 
-def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-                   D: torch.Tensor, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+def selective_scan_states(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                          Cm: torch.Tensor, D: torch.Tensor,
+                          chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked Mamba1 selective scan: a log-step doubling scan of the affine
     pairs (exp(dt A), dt u B) inside each chunk, the state carried across.
     u and dt [B, S, C], A [C, N], B and C [B, S, N], D [C].  Returns
-    (y [B, S, C] in u's type, final state [B, C, N] float32).  Any S."""
+    (y [B, S, C] in u's type, final state [B, C, N] float32, the state
+    entering each chunk [B, chunks, C, N] float32).  Any S."""
     B_, S, C = u.shape
     N = A.shape[1]
     nc, (uf, dtf, Bf, Cf) = _pad_steps(chunk, u, dt, Bm, Cm)
     Af = A.float()
     state = torch.zeros(B_, C, N, dtype=torch.float32, device=u.device)
-    ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        uc, dtc, Bc, Cc = uf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
-        a = torch.exp(dtc[..., None] * Af)  # [B, L, C, N]
-        b = (dtc * uc)[..., None] * Bc[:, :, None, :]
-        d = 1
-        while d < chunk:  # (a1, b1) then (a2, b2) compose to (a1 a2, a2 b1 + b2)
-            b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], 1)
-            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
-            d *= 2
-        s = a * state[:, None] + b
-        ys.append(torch.einsum("btcn,btn->btc", s, Cc))
-        state = s[:, -1]
-    y = torch.cat(ys, 1)[:, :S] if ys else uf[:, :S]
-    y = y + uf[:, :S] * D.float()
-    return y.to(u.dtype), state
+    entering = torch.empty(B_, nc, C, N, dtype=torch.float32, device=u.device)
+    y = torch.empty(B_, nc * chunk, C, dtype=torch.float32, device=u.device)
+    for ch in _blocks(C, B_ * chunk * N, u.device):  # channels are independent
+        for c in range(nc):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            uc, dtc, Bc, Cc = uf[:, sl, ch], dtf[:, sl, ch], Bf[:, sl], Cf[:, sl]
+            a = torch.exp(dtc[..., None] * Af[ch])  # [B, L, C, N]
+            b = (dtc * uc)[..., None] * Bc[:, :, None, :]
+            a, b = _doubling(a, b, 1)
+            entering[:, c, ch] = state[:, ch]
+            s = a * state[:, None, ch] + b
+            y[:, sl, ch] = torch.einsum("btcn,btn->btc", s, Cc)
+            state[:, ch] = s[:, -1]
+    y = y[:, :S] + uf[:, :S] * D.float()
+    return y.to(u.dtype), state, entering
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   D: torch.Tensor, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan_states` without the entering states: (y [B, S, C]
+    in u's type, final state [B, C, N] float32)."""
+    return selective_scan_states(u, dt, A, Bm, Cm, D, chunk)[:2]
+
+
+# --------------------------------------------------------------------------- #
+# the scans' backwards
+# --------------------------------------------------------------------------- #
+#
+# Each takes the forward's inputs, the state entering each chunk (which the
+# kernel writes beside its outputs) and the cotangents of y and of the final
+# state, and returns the inputs' gradients.  Both are chunk-parallel: a first
+# pass gives each chunk's share of the gradient of the state entering it in
+# closed form, a sequential pass over the chunks (one [B, ..., N, P] update a
+# chunk, as the forward's state pass) carries the state cotangent back, and a
+# last pass recomputes each chunk's intermediates from its entering state and
+# its carried cotangent.  The chunks go through both chunk-parallel passes in
+# groups (and the selective scan's channels, which are independent, in
+# blocks) whose largest temporary holds at most GROUP_ELEMENTS of the
+# device's elements: few launches on the card, and tiles that stay nearer
+# the caches on the CPU (a third of the time of 2^27 there at falcon-mamba's
+# width).
+
+GROUP_ELEMENTS = {"cuda": 1 << 27, "cpu": 1 << 20}  # float32 elements: 512 MiB, 4 MiB
+
+
+def _blocks(n: int, per_item: int, device: torch.device) -> list[slice]:
+    """Slices of ``n`` items (chunks, channels) of ``per_item`` elements each,
+    as few as keep each slice within GROUP_ELEMENTS (one item at least)."""
+    g = max(1, GROUP_ELEMENTS.get(device.type, 1 << 27) // max(1, per_item))
+    return [slice(c, min(n, c + g)) for c in range(0, n, g)]
+
+
+def _doubling(a: torch.Tensor, b: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of the affine pairs (a_t, b_t) along ``dim`` (s_t = a_t
+    s_{t-1} + b_t from s = 0) by log-step doubling: (the products of a up to
+    t, s_t)."""
+    L = a.shape[dim]
+    d = 1
+    while d < L:  # (a1, b1) then (a2, b2) compose to (a1 a2, a2 b1 + b2)
+        b = torch.cat([b.narrow(dim, 0, d), a.narrow(dim, d, L - d) * b.narrow(dim, 0, L - d)
+                       + b.narrow(dim, d, L - d)], dim)
+        a = torch.cat([a.narrow(dim, 0, d), a.narrow(dim, 0, L - d) * a.narrow(dim, d, L - d)], dim)
+        d *= 2
+    return a, b
+
+
+def _carry_back(decay: torch.Tensor, local: torch.Tensor, g_state) -> torch.Tensor:
+    """The cotangent of the state leaving each chunk, [B, chunks, ...]: the
+    last chunk's is ``g_state`` (None: 0), and the one before chunk c is
+    ``local[:, c] + decay[:, c] * (chunk c's)``, with ``decay`` [B, chunks, ...]
+    broadcasting against ``local``."""
+    out = torch.empty_like(local)
+    g = torch.zeros_like(local[:, 0]) if g_state is None else g_state.float()
+    for c in range(local.shape[1] - 1, -1, -1):
+        out[:, c] = g
+        g = local[:, c] + decay[:, c] * g
+    return out
+
+
+def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                       D: torch.Tensor, entering: torch.Tensor, g_y: torch.Tensor, g_state=None,
+                       chunk: int = 64) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`selective_scan_states`'s (y, final state) at
+    the cotangents ``g_y`` [B, S, C] and ``g_state`` [B, C, N] (None: 0),
+    from the state entering each chunk of ``chunk`` steps ([B, chunks, C, N]).
+    Returns (gu in u's type, gdt, gA, gB, gC, gD), float32 but gu.
+
+    With a_t = exp(dt_t A) and b_t = dt_t u_t B_t, the state cotangent is
+    the reverse scan gs_t = g_y_t (x) C_t + a_{t+1} gs_{t+1}, seeded by
+    ``g_state`` at the last step; then gC_t = sum_c g_y_t s_t, gB_t =
+    sum_c gs_t dt_t u_t, d(dt_t A) = gs_t s_{t-1} a_t, and gu, gdt, gA and
+    gD follow, gA and gD summed over the batch and time."""
+    B_, S, C = u.shape
+    N = A.shape[1]
+    nc, (uf, dtf, Bf, Cf, gyf) = _pad_steps(chunk, u, dt, Bm, Cm, g_y)
+    L = chunk
+    uc, dtc, gyc = (t.reshape(B_, nc, L, C) for t in (uf, dtf, gyf))
+    Bc, Cc = Bf.reshape(B_, nc, L, N), Cf.reshape(B_, nc, L, N)
+    Af = A.float()
+    cum = torch.cumsum(dtc, 2)  # [B, c, L, C]: the products of a inside a chunk are exp(cum A)
+    channels = _blocks(C, B_ * L * N, u.device)
+    groups = _blocks(nc, B_ * L * (channels[0].stop - channels[0].start) * N, u.device)
+    # 1. each chunk's share of the gradient of the state entering it,
+    #    sum_t exp(cum_t A) g_y_t (x) C_t, and its decay exp(cum_L A)
+    local = torch.empty(B_, nc, C, N, dtype=torch.float32, device=u.device)
+    for ch in channels:
+        for g in groups:
+            local[:, g, ch] = torch.einsum("bqlcn,bqlc,bqln->bqcn", torch.exp(cum[:, g, :, ch, None] * Af[ch]),
+                                           gyc[:, g, :, ch], Cc[:, g])
+    # 2. the state cotangent leaving each chunk, carried back over the chunks
+    carry = _carry_back(torch.exp(cum[:, :, -1, :, None] * Af), local, g_state)
+    del local
+    # 3. each chunk's intermediates again, from its entering state and carried cotangent
+    gu, gdt = torch.empty_like(uc), torch.empty_like(dtc)
+    gB, gC = torch.zeros_like(Bc), torch.zeros_like(Cc)  # sums over the channel blocks
+    gA = torch.empty_like(Af)
+    for ch in channels:
+        gA[ch] = 0.0
+        for g in groups:
+            u_, dt_, gy_, B2, C2 = uc[:, g, :, ch], dtc[:, g, :, ch], gyc[:, g, :, ch], Bc[:, g], Cc[:, g]
+            a = torch.exp(dt_[..., None] * Af[ch])  # [B, q, L, c, N]
+            du = dt_ * u_
+            prod, s = _doubling(a, du[..., None] * B2[:, :, :, None, :], 2)
+            s = s + prod * entering[:, g, None, ch]
+            del prod
+            gC[:, g] += torch.einsum("bqlc,bqlcn->bqln", gy_, s)
+            s_prev = torch.cat([entering[:, g, None, ch], s[:, :, :-1]], 2)
+            del s
+            # the reverse scan: step j of it is step L-1-j of the chunk, whose decay
+            # is a_{L-j} (1 at j = 0, where the carried cotangent enters)
+            alpha = torch.cat([torch.ones_like(a[:, :, :1]), a.flip(2)[:, :, :-1]], 2)
+            prod, gs = _doubling(alpha, (gy_[..., None] * C2[:, :, :, None, :]).flip(2), 2)
+            del alpha
+            gs = (gs + prod * carry[:, g, None, ch]).flip(2)
+            del prod
+            q = gs * s_prev * a  # the cotangent of dt A
+            del s_prev, a
+            g_du = torch.einsum("bqlcn,bqln->bqlc", gs, B2)
+            gB[:, g] += torch.einsum("bqlcn,bqlc->bqln", gs, du)
+            del gs
+            gdt[:, g, :, ch] = g_du * u_ + torch.einsum("bqlcn,cn->bqlc", q, Af[ch])
+            gA[ch] += torch.einsum("bqlcn,bqlc->cn", q, dt_)
+            gu[:, g, :, ch] = g_du * dt_ + gy_ * D.float()[ch]
+            del q
+    gD = torch.einsum("bqlc,bqlc->c", gyc, uc)
+    unpad = lambda t, w: t.reshape(B_, nc * L, w)[:, :S]  # noqa: E731
+    return unpad(gu, C).to(u.dtype), unpad(gdt, C), gA, unpad(gB, N), unpad(gC, N), gD
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 entering: torch.Tensor, g_y: torch.Tensor, g_state=None,
+                 chunk: int = 64) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_scan_phases`'s (y, final state) at the
+    cotangents ``g_y`` [B, S, H, P] and ``g_state`` [B, H, N, P] (None: 0),
+    from the state entering each chunk ([B, chunks, H, N, P]).  Returns (gx
+    in x's type, gdt, gA, gB, gC), float32 but gx.
+
+    A chunk's state leaves as exp(total) S_in + sum_s exp(total - cum_s) dt_s
+    B_s (x) x_s, so the state cotangent G entering it from the right carries
+    back as exp(total) G + sum_t exp(cum_t) C_t (x) g_y_t; inside the chunk
+    the products of the forward's three phases are recomputed and
+    differentiated, and the log-decay's cotangent goes back through
+    cum = cumsum(dt A) as a reverse cumulative sum."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = chunk
+    nc, (xf, dtf, Bf, Cf, gyf) = _pad_steps(chunk, x, dt, Bm, Cm, g_y)
+    xc, gyc, dtc = xf.reshape(B_, nc, L, H, P), gyf.reshape(B_, nc, L, H, P), dtf.reshape(B_, nc, L, H)
+    Bc, Cc = Bf.reshape(B_, nc, L, N), Cf.reshape(B_, nc, L, N)
+    Af = A.float()
+    cum = torch.cumsum(dtc.double() * A.double(), 2)  # [B, c, L, H], in float64 as the forward takes it
+    total = cum[:, :, -1]
+    ecum = cum.exp().float()
+    # 1-2. the state cotangent leaving each chunk, carried back over the chunks
+    local = torch.einsum("bclh,bcln,bclhp->bchnp", ecum, Cc, gyc)
+    carry = _carry_back(total.exp().float()[..., None, None], local, g_state)
+    del local
+    # 3. each chunk's products again
+    gx, gdt = torch.empty_like(xc), torch.empty_like(dtc)
+    gB, gC = torch.empty_like(Bc), torch.empty_like(Cc)
+    gA = torch.zeros_like(Af)
+    mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    for g in _blocks(nc, B_ * L * L * H, x.device):
+        x_, gy_, dt_, B2, C2 = xc[:, g], gyc[:, g], dtc[:, g], Bc[:, g], Cc[:, g]
+        S_in, G = entering[:, g], carry[:, g]
+        cm, tot, ec = cum[:, g], total[:, g], ecum[:, g]
+        # y's share from the entering state: exp(cum_t) C_t . S_in
+        g_cum = ec * torch.einsum("bcln,bchnp,bclhp->bclh", C2, S_in, gy_)
+        gC_ = torch.einsum("bclh,bchnp,bclhp->bcln", ec, S_in, gy_)
+        # the intra-chunk products: W_ij = exp(cum_i - cum_j) (C_i . B_j) dt_j for j <= i
+        M = (cm[:, :, :, None, :] - cm[:, :, None, :, :]).float().masked_fill(~mask[:, :, None], float("-inf")).exp()
+        CB = torch.einsum("bcin,bcjn->bcij", C2, B2)
+        W = M * CB[..., None] * dt_[:, :, None]
+        gW = torch.einsum("bcihp,bcjhp->bcijh", gy_, x_) * mask[:, :, None]
+        gx_ = torch.einsum("bcijh,bcihp->bcjhp", W, gy_)
+        gWM = gW * M
+        del M
+        gCB = torch.einsum("bcijh,bcjh->bcij", gWM, dt_)
+        gC_ = gC_ + torch.einsum("bcij,bcjn->bcin", gCB, B2)
+        gB_ = torch.einsum("bcij,bcin->bcjn", gCB, C2)
+        gdt_ = torch.einsum("bcijh,bcij->bcjh", gWM, CB)
+        del gWM
+        gWW = gW * W
+        del gW, W
+        g_cum = g_cum + gWW.sum(3) - gWW.sum(2)
+        del gWW
+        # the state leaving: exp(total) S_in + sum_s v_s B_s (x) x_s, v_s = exp(total - cum_s) dt_s
+        e_out = (tot[:, :, None] - cm).exp().float()
+        v = e_out * dt_
+        BG = torch.einsum("bcln,bchnp->bclhp", B2, G)
+        gx_ = gx_ + v[..., None] * BG
+        gv = (BG * x_).sum(-1)
+        del BG
+        gB_ = gB_ + torch.einsum("bclh,bchnp,bclhp->bcln", v, G, x_)
+        gdt_ = gdt_ + gv * e_out
+        g_tot = (gv * v).sum(2) + tot.exp().float() * (G * S_in).sum((-2, -1))
+        g_cum = g_cum - gv * v
+        g_cum[:, :, -1] += g_tot
+        # cum = cumsum(dt A): the reverse cumulative sum
+        g_dtA = g_cum.flip(2).cumsum(2).flip(2)
+        gdt[:, g] = gdt_ + g_dtA * Af
+        gA += torch.einsum("bclh,bclh->h", g_dtA, dt_)
+        gx[:, g], gB[:, g], gC[:, g] = gx_, gB_, gC_
+    unpad = lambda t, *w: t.reshape(B_, nc * L, *w)[:, :S]  # noqa: E731
+    return unpad(gx, H, P).to(x.dtype), unpad(gdt, H), gA, unpad(gB, N), unpad(gC, N)

@@ -240,7 +240,7 @@ _ENTRY = {
     # x, dt, A, B, C, y, state, scratch, Bt, S, H, P, N, bf16, heads a block, stream
     "ssd_chunk_scan": {"ssd_chunk_scan_launch": [_P] * 8 + [_I] * 7 + [_P]},
     # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream
-    "selective_scan": {"selective_scan_launch": [_P] * 8 + [_I] * 5 + [_P]},
+    "selective_scan": {"selective_scan_launch": [_P] * 9 + [_I] * 5 + [_P]},
 }
 
 

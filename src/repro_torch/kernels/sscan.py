@@ -9,8 +9,11 @@
 * the bare first-order affine prefix ``s_i = decay * s_{i-1} + b_i`` (s0 = 0)
   (the same source, the occupancy carry compiled out) with a differentiable
   wrapper, :func:`affine_scan`;
-* the Mamba1 selective scan (``csrc/selective_scan.cu``), forward only, as
-  :func:`selective_scan`; its plain version is ``ref.selective_scan``.
+* the Mamba1 selective scan (``csrc/selective_scan.cu``) as
+  :func:`selective_scan`; its plain version is ``ref.selective_scan``.  With
+  gradients on, the kernel also writes the state entering each of its
+  48-step chunks, and the backward (``ref.selective_scan_bwd``, plain
+  PyTorch on the inputs' device) starts from them.
 
 ``s_i = sum_{j<=i} decay^(i-j) b_j``; the gradient is the reversed scan
 ``db_k = sum_{i>=k} decay^(i-k) g_i``, so the backward launches the same
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import (affine_scan_reference, mapper_carries_backward_reference,
-                                     mapper_carries_reference)
+                                     mapper_carries_reference, selective_scan_bwd, selective_scan_states)
 from repro_torch.kernels.ref import selective_scan as selective_scan_plain
 
 
@@ -245,6 +248,8 @@ def mapper_carries(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, o
 # --------------------------------------------------------------------------- #
 
 MAX_STATE = 16  # csrc/selective_scan.cu holds at most 16 states a channel (2 a thread, in 8 warps)
+CHUNK = 48  # csrc/selective_scan.cu's kChunk: the entering states are those of its chunks
+BACKWARD_RANGE = "repro_torch::selective_scan_backward"  # the backward's torch.profiler range
 
 
 def _check_selective(u, dt, A, Bm, Cm, D) -> None:
@@ -272,8 +277,10 @@ def selective_scan_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: to
 
 
 @selective_scan_op.register_kernel("cuda")
-def _selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                         Cm: torch.Tensor, D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                         D: torch.Tensor, entering: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; ``entering`` (the states op's) is None or the
+    [Bt, chunks, C, N] float32 buffer of the state entering each chunk."""
     _check_selective(u, dt, A, Bm, Cm, D)
     if not all(t.is_contiguous() for t in (u, dt, A, Bm, Cm, D)):
         raise ValueError("selective_scan: inputs must be contiguous")
@@ -288,7 +295,8 @@ def _selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
     lib = runtime.library("selective_scan")
     runtime.count_launch("selective_scan")
     err = lib.selective_scan_launch(u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                                    D.data_ptr(), y.data_ptr(), state.data_ptr(), Bt, S, C, N,
+                                    D.data_ptr(), y.data_ptr(), state.data_ptr(),
+                                    None if entering is None else entering.data_ptr(), Bt, S, C, N,
                                     int(u.dtype == torch.bfloat16), runtime.stream_handle(u))
     runtime.check_launch("selective_scan", err)
     return y, state
@@ -299,11 +307,64 @@ def _selective_scan_fake(u, dt, A, Bm, Cm, D):
     return torch.empty_like(u), u.new_empty((u.shape[0], u.shape[2], A.shape[1]), dtype=torch.float32)
 
 
+def _entering_shape(u: torch.Tensor, A: torch.Tensor) -> tuple[int, ...]:
+    return (u.shape[0], -(-u.shape[1] // CHUNK), u.shape[2], A.shape[1])
+
+
+@torch.library.custom_op("repro_torch::selective_scan_states", mutates_args=(), device_types="cpu")
+def selective_scan_states_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                             D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, final state, the state entering each ``CHUNK``-step chunk
+    [B, chunks, C, N] float32): the plain version (CPU implementation)."""
+    _check_selective(u, dt, A, Bm, Cm, D)
+    return selective_scan_states(u, dt, A, Bm, Cm, D, chunk=CHUNK)
+
+
+@selective_scan_states_op.register_kernel("cuda")
+def _selective_scan_states_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                                Cm: torch.Tensor, D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    entering = torch.empty(_entering_shape(u, A), dtype=torch.float32, device=u.device)  # all written
+    return (*_selective_scan_cuda(u, dt, A, Bm, Cm, D, entering), entering)
+
+
+@selective_scan_states_op.register_fake
+def _selective_scan_states_fake(u, dt, A, Bm, Cm, D):
+    y, state = _selective_scan_fake(u, dt, A, Bm, Cm, D)
+    return y, state, u.new_empty(_entering_shape(u, A), dtype=torch.float32)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan with the entering states saved; its backward is plain PyTorch
+    on the inputs' device (``ref.selective_scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bm, Cm, D):
+        y, state, entering = selective_scan_states_op(u, dt, A, Bm, Cm, D)
+        ctx.save_for_backward(u, dt, A, Bm, Cm, D, entering)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        u, dt, A, Bm, Cm, D, entering = ctx.saved_tensors
+        if g_y is None:
+            g_y = torch.zeros_like(u)
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            grads = selective_scan_bwd(u, dt, A, Bm, Cm, D, entering, g_y, g_state, chunk=CHUNK)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """u [B, S, C], dt [B, S, C] (after softplus), A [C, N] (negative), B and C
-    [B, S, N], D [C] -> (y [B, S, C] in u's type, final state [B, C, N] float32)."""
-    return selective_scan_op(*(t.contiguous() for t in (u, dt, A, Bm, Cm, D)))
+    [B, S, N], D [C] -> (y [B, S, C] in u's type, final state [B, C, N] float32).
+    Differentiable: with gradients on and an input that requires them, the
+    launch also writes the states the backward starts from; else it writes
+    y and the final state alone."""
+    args = tuple(t.contiguous() for t in (u, dt, A, Bm, Cm, D))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args)
+    return selective_scan_op(*args)
 
 
 def selective_scan_operations(Bt: int, S: int, C: int, N: int) -> int:

@@ -8,13 +8,18 @@ chunks, and each chunk's output.  One op call launches three device kernels
 (one when S = 0) and counts as one launch.  The chunk length is the kernel's
 own (``CHUNK``): the chunked form is exact for any chunk, and a ragged last
 chunk is masked, so any sequence length works.
+
+With gradients on, :func:`ssd_chunk_scan` keeps the state entering each
+chunk, which the kernels leave in their scratch (the plain version returns
+it too), and its backward (``ref.ssd_scan_bwd``, plain PyTorch on the inputs'
+device) starts from them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ref import ssd_scan
+from repro_torch.kernels.ref import ssd_scan, ssd_scan_bwd, ssd_scan_phases
 
 CHUNK = 64  # csrc/ssd.cu's kChunk
 TILE = 64  # csrc/ssd.cu's kTile: the scratch states pad N and P to a multiple of it
@@ -23,6 +28,7 @@ MOST_HEADS = 4  # heads a block of the outputs kernel takes at most
 # blocks of the outputs kernel the H100 holds at once at N = P = 64: its shared
 # memory (~70 KB) and registers (165 a thread in bf16) allow 3 on each of 132 SMs
 RESIDENT_BLOCKS = 3 * 132
+BACKWARD_RANGE = "repro_torch::ssd_chunk_scan_backward"  # the backward's torch.profiler range
 
 
 def _padded(n: int) -> int:
@@ -85,8 +91,10 @@ def scratch_for(x: torch.Tensor, Bt: int, S: int, H: int, P: int, N: int) -> tor
 
 
 @ssd_chunk_scan_op.register_kernel("cuda")
-def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                         Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                         keep_states: bool = False) -> tuple[torch.Tensor, ...]:
+    """Launch the kernels: (y, final state), and with ``keep_states`` (the
+    states op's) the state entering each chunk [Bt, chunks, H, N, P]."""
     _check(x, dt, A, Bm, Cm)
     if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
         raise ValueError("ssd_chunk_scan: inputs must be contiguous")
@@ -97,7 +105,7 @@ def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
     y = torch.empty_like(x)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
     if Bt * H == 0:  # no (batch, head) to scan, no launch
-        return y, state
+        return (y, state, x.new_zeros(_entering_shape(x, Bm), dtype=torch.float32)) if keep_states else (y, state)
     scratch = scratch_for(x, Bt, S, H, P, N)
     lib = runtime.library("ssd_chunk_scan")
     runtime.count_launch("ssd_chunk_scan")
@@ -106,7 +114,11 @@ def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
                                     int(x.dtype == torch.bfloat16), heads_per_block(Bt, S, H),
                                     runtime.stream_handle(x))
     runtime.check_launch("ssd_chunk_scan", err)
-    return y, state
+    if not keep_states:
+        return y, state
+    # the scratch's states: a view where N and P fill its tiles, else a copy
+    entering = chunk_states(scratch, Bt, S, H, P, N)
+    return y, state, entering if entering.is_contiguous() else entering.contiguous()
 
 
 @ssd_chunk_scan_op.register_fake
@@ -115,11 +127,63 @@ def _ssd_chunk_scan_fake(x, dt, A, Bm, Cm):
     return torch.empty_like(x), x.new_empty((Bt, H, Bm.shape[-1], P), dtype=torch.float32)
 
 
+def _entering_shape(x: torch.Tensor, Bm: torch.Tensor) -> tuple[int, ...]:
+    Bt, S, H, P = x.shape
+    return (Bt, -(-S // CHUNK), H, Bm.shape[-1], P)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_scan_states", mutates_args=(), device_types="cpu")
+def ssd_chunk_scan_states_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                             Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, final state, the state entering each chunk [B, chunks, H, N, P]
+    float32): the plain version (CPU implementation)."""
+    _check(x, dt, A, Bm, Cm)
+    return ssd_scan_phases(x, dt, A, Bm, Cm, chunk=CHUNK)
+
+
+@ssd_chunk_scan_states_op.register_kernel("cuda")
+def _ssd_chunk_scan_states_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                                Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _ssd_chunk_scan_cuda(x, dt, A, Bm, Cm, keep_states=True)
+
+
+@ssd_chunk_scan_states_op.register_fake
+def _ssd_chunk_scan_states_fake(x, dt, A, Bm, Cm):
+    y, state = _ssd_chunk_scan_fake(x, dt, A, Bm, Cm)
+    return y, state, x.new_empty(_entering_shape(x, Bm), dtype=torch.float32)
+
+
+class _SSDChunkScan(torch.autograd.Function):
+    """The scan with the entering states saved; its backward is plain PyTorch
+    on the inputs' device (``ref.ssd_scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        y, state, entering = ssd_chunk_scan_states_op(x, dt, A, Bm, Cm)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, entering)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        x, dt, A, Bm, Cm, entering = ctx.saved_tensors
+        if g_y is None:
+            g_y = torch.zeros_like(x)
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            grads = ssd_scan_bwd(x, dt, A, Bm, Cm, entering, g_y, g_state, chunk=CHUNK)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, H, P], dt [B, S, H] (after softplus), A [H] (negative), B and C
-    [B, S, N] -> (y [B, S, H, P] in x's type, final state [B, H, N, P] float32)."""
-    return ssd_chunk_scan_op(x.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(), Cm.contiguous())
+    [B, S, N] -> (y [B, S, H, P] in x's type, final state [B, H, N, P] float32).
+    Differentiable: with gradients on and an input that requires them, the
+    entering states stay for the backward; else the scratch is freed."""
+    args = tuple(t.contiguous() for t in (x, dt, A, Bm, Cm))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SSDChunkScan.apply(*args)
+    return ssd_chunk_scan_op(*args)
 
 
 def operations(Bt: int, S: int, H: int, P: int, N: int) -> int:

@@ -5,7 +5,9 @@ The full-sequence scans run the hand-written kernels: :func:`selective_scan`
 (``kernels.sscan.selective_scan``) and :func:`ssd_scan`
 (``kernels.ssd.ssd_chunk_scan``).  Both return the output and the final state,
 which the prefill hands to decode.  Each kernel picks its own chunking and
-masks a ragged tail, so any prompt length works.  The conv and the two decode
+masks a ragged tail, so any prompt length works.  Both are differentiable:
+with gradients on, the kernel keeps the state entering each of its chunks
+and a plain-PyTorch backward starts from them.  The conv and the two decode
 steps are plain PyTorch.
 
 Numerics: state math in fp32; parameters fp32; activations in the model dtype

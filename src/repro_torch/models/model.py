@@ -17,10 +17,10 @@ Against the reference's structure:
   * :meth:`Model.forward` returns (out, aux, caches) as the reference does,
     ``aux`` holding the MoE layers' mean load-balance and z losses (0 for the
     other families); with gradients on, each layer body runs under
-    ``cfg.remat`` (:func:`_remat`: ``torch.utils.checkpoint``);
-  * :meth:`Model.loss` is the dense, audio, vlm and moe families' training
-    loss; the SSM families have no training path yet (their scan kernels
-    have no backward) and raise;
+    ``cfg.remat`` (:func:`_remat`: ``torch.utils.checkpoint``): every self
+    layer and every SSM layer, not the vlm's cross layers nor the hybrid's
+    shared block, as in the reference;
+  * :meth:`Model.loss` is every family's training loss;
   * weights are cast to the compute dtype by :meth:`Model.precast`, once at
     load (the serving engine calls it); the functions below cast only leaves
     still in float32, which a precast tree no longer has;
@@ -208,8 +208,8 @@ class Model:
         layer's k and v [L, B, S, KV, hd], the vlm's cross layers' vision k and
         v (``xk``, ``xv``), and each SSM layer's conv window and final state
         (``conv``, ``state``).  With gradients on and no cache collected, each
-        layer body (the vlm: each self layer, not the cross layer) runs under
-        ``cfg.remat``."""
+        layer body runs under ``cfg.remat`` (the vlm's cross layers and the
+        hybrid's shared block do not, as in the reference)."""
         cfg = self.cfg
         dt = _dtype(cfg)
         B, Sq = tokens.shape[:2]
@@ -254,22 +254,24 @@ class Model:
                 if collect_cache:
                     xks.append(kv_k)
                     xvs.append(kv_v)
-        elif cfg.family == "ssm":
-            for i in range(cfg.n_layers):
-                h, (cb, st) = S.mamba1_layer(cfg, _layer(params["layers"], i), h)
-                convs.append(cb)
-                states.append(st)
-        elif cfg.family == "hybrid":
-            every = cfg.hybrid.attn_every
+        elif cfg.family in ("ssm", "hybrid"):
+            ssm_layer = S.mamba1_layer if cfg.family == "ssm" else S.mamba2_layer
+            ssm_body = _remat(lambda lp, h: ssm_layer(cfg, lp, h, cache=False), remat)
             h0 = h
             for i in range(cfg.n_layers):
-                h, (cb, st) = S.mamba2_layer(cfg, _layer(params["layers"], i), h)
-                convs.append(cb)
-                states.append(st)
-                if (i + 1) % every == 0:  # none after the tail past the last multiple
+                lp = _layer(params["layers"], i)
+                if collect_cache:
+                    h, (cb, st) = ssm_layer(cfg, lp, h)
+                    convs.append(cb)
+                    states.append(st)
+                else:
+                    h = ssm_body(lp, h)
+                # the hybrid's shared block (outside remat), none after the tail past the last multiple
+                if cfg.family == "hybrid" and (i + 1) % cfg.hybrid.attn_every == 0:
                     h, (k, v) = _shared_block(cfg, params["shared"], h, h0, positions)
-                    ks.append(k)
-                    vs.append(v)
+                    if collect_cache:
+                        ks.append(k)
+                        vs.append(v)
         else:
             raise ValueError(cfg.family)
         caches = {}
@@ -292,10 +294,6 @@ class Model:
         compute dtype happens inside, so gradients reach the float32 leaves.
         Returns (total, {"loss", "moe_aux", "moe_z", "tokens"})."""
         cfg = self.cfg
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"Model.loss: the {cfg.family!r} family has no training path in repro_torch yet: its scan "
-                "kernels (ssd_chunk_scan, selective_scan) have no backward (ROADMAP.md queue 1, item 5c)")
         h, aux, _ = self.forward(params, batch["tokens"], vision=batch.get("vision"), head=False)
         chunk = max(256, h.shape[1] // 4)
         loss = T.chunked_xent(cfg, params, h, batch["labels"], chunk=chunk)

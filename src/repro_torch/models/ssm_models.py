@@ -4,7 +4,10 @@ sequence and one decode step); the loop over layers is in model.py.
 
 The full-sequence layers return the new hidden state together with what
 decode starts from, the layer's conv window and final SSM state: the scan
-kernels return the state anyway, so the prefill needs no second pass.
+kernels return the state anyway, so the prefill needs no second pass.  With
+``cache=False`` (training) they return the hidden state alone and build no
+conv window; they are differentiable end to end (the scans' autograd formulas
+are in ``kernels/sscan.py`` and ``kernels/ssd.py``).
 """
 from __future__ import annotations
 
@@ -64,19 +67,21 @@ def _mamba1_bcdt(cfg: ModelConfig, lp: dict, xi: torch.Tensor):
     return dt, Bc, Cc
 
 
-def mamba1_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor):
+def mamba1_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True):
     """Full-sequence Mamba1 block.  h: [B, S, d].
-    Returns (h_new, (conv window [B, K-1, di], state [B, di, N]))."""
+    Returns (h_new, (conv window [B, K-1, di], state [B, di, N])), or h_new
+    alone without ``cache``."""
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
     xi, zg = _mamba1_inner(cfg, lp, x)
-    conv_buf = conv_window(xi, cfg.ssm.d_conv)
+    conv_buf = conv_window(xi, cfg.ssm.d_conv) if cache else None
     xi = causal_conv1d(xi, lp["conv_w"], lp["conv_b"])
     xi = F.silu(xi.float()).to(h.dtype)
     dt, Bc, Cc = _mamba1_bcdt(cfg, lp, xi)
     A = -torch.exp(lp["A_log"].float())
     y, state = selective_scan(xi, dt, A, Bc, Cc, lp["D"].float())
     y = y * F.silu(zg.float()).to(h.dtype)
-    return h + mm("bse,ed->bsd", y, lp["out_proj"]), (conv_buf, state)
+    h = h + mm("bse,ed->bsd", y, lp["out_proj"])
+    return (h, (conv_buf, state)) if cache else h
 
 
 def mamba1_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state):
@@ -127,22 +132,24 @@ def _mamba2_out(cfg: ModelConfig, lp: dict, h, y, xi, zg):
     return h + mm("bse,ed->bsd", y.to(h.dtype), lp["out_proj"]).to(h.dtype)
 
 
-def mamba2_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor):
+def mamba2_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True):
     """Full-sequence Mamba2 block.  h: [B, S, d].
-    Returns (h_new, (conv window [B, K-1, di+2N], state [B, nh, N, P]))."""
+    Returns (h_new, (conv window [B, K-1, di+2N], state [B, nh, N, P])), or
+    h_new alone without ``cache``."""
     B, S, _ = h.shape
     di, s = cfg.d_inner, cfg.ssm
     nh, N = di // s.head_dim, s.d_state
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
     xi, zg, Bc, Cc, dt = _mamba2_split(cfg, mm("bsd,de->bse", x, lp["in_proj"]))
     xbc = torch.cat([xi, Bc, Cc], -1)
-    conv_buf = conv_window(xbc, s.d_conv)
+    conv_buf = conv_window(xbc, s.d_conv) if cache else None
     xbc = F.silu(causal_conv1d(xbc, lp["conv_w"], lp["conv_b"]).float()).to(h.dtype)
     xi, Bc, Cc = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
     dt = F.softplus(dt.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
     y, state = ssd_scan(xi.reshape(B, S, nh, s.head_dim), dt, A, Bc.float(), Cc.float())
-    return _mamba2_out(cfg, lp, h, y.reshape(B, S, di), xi, zg), (conv_buf, state)
+    h = _mamba2_out(cfg, lp, h, y.reshape(B, S, di), xi, zg)
+    return (h, (conv_buf, state)) if cache else h
 
 
 def mamba2_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state):

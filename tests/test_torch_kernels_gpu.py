@@ -654,6 +654,81 @@ def test_selective_scan_kernel_takes_unaligned_bases(cuda, dtype):
     torch.testing.assert_close(state, s_ref, atol=2e-4, rtol=1e-4)
 
 
+
+# --------------------------------------------------------------------------- #
+# the scans' backwards (plain PyTorch from the kernels' entering states) on the
+# card, against the same functions on the CPU; tolerances as
+# tests/test_torch_ssm_grad.py's: atol 2e-4 (K5) / 1e-4 (K4) plus rtol 1e-4
+# of each gradient's largest entry (a bf16 gradient: 2e-2 plus 1e-2 of it, as
+# a bf16 step is 2^-8 of the value)
+# --------------------------------------------------------------------------- #
+
+
+def _grads_on(fn, args, cots, dev):
+    xs = [a.detach().to(dev).requires_grad_(a.is_floating_point()) for a in args]
+    y, state = fn(*xs)
+    return [g.cpu() for g in torch.autograd.grad([y, state], xs, [c.to(dev) for c in cots])]
+
+
+def _hold_grads(got, want, atol):
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        tol = (atol + 1e-4 * float(w.float().abs().max()) if g.dtype == torch.float32
+               else 2e-2 + 1e-2 * float(w.float().abs().max()))
+        assert float((g.double() - w.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["S 1", "S 97, ragged at the second chunk", "C 100, N 3, batch 2", "N 16, batch 2",
+                                  "long memory", "fast decay"])
+def test_selective_scan_entering_states_match_plain(cuda, case, dtype):
+    """The kernel's state entering each 48-step chunk against the plain
+    version's at the same chunking; y and the final state bit for bit those
+    of the launch that writes no entering states."""
+    from repro_torch.kernels import ref, runtime, sscan
+
+    gen = torch.Generator("cuda").manual_seed(sum(SCAN_EDGES[case]) + 1)
+    args = _scan_edge_inputs(gen, cuda, case, dtype)
+    before = runtime.LAUNCHES["selective_scan"]
+    y, state, entering = sscan.selective_scan_states_op(*args)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["selective_scan"] == before + 1
+    _, _, want = ref.selective_scan_states(*args, chunk=sscan.CHUNK)
+    assert entering.shape == want.shape
+    torch.testing.assert_close(entering, want, atol=2e-4, rtol=1e-4)
+    y0, s0 = sscan.selective_scan_op(*args)
+    assert torch.equal(y, y0) and torch.equal(state, s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,C,N", [(1, 4096, 512, 16), (2, 97, 64, 16), (1, 150, 130, 3), (1, 1, 64, 16)])
+def test_selective_scan_backward_on_card_matches_cpu(cuda, B, S, C, N, dtype):
+    from repro_torch.kernels import runtime, sscan
+
+    gen = torch.Generator("cuda").manual_seed(B * S + C)
+    args = _scan_inputs(gen, cuda, B, S, C, N, dtype)
+    cots = (torch.randn(B, S, C, generator=gen, device=cuda).to(dtype), torch.randn(B, C, N, generator=gen, device=cuda))
+    before = runtime.LAUNCHES["selective_scan"]
+    got = _grads_on(sscan.selective_scan, args, cots, cuda)
+    assert runtime.LAUNCHES["selective_scan"] == before + 1  # the backward launches nothing
+    _hold_grads(got, _grads_on(sscan.selective_scan, args, cots, "cpu"), 2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 4096, 64, 64, 64), (2, 257, 4, 32, 16), (1, 100, 3, 100, 70),
+                                       (1, 1, 2, 16, 8)])
+def test_ssd_backward_on_card_matches_cpu(cuda, B, S, H, P, N, dtype):
+    from repro_torch.kernels import runtime, ssd
+
+    gen = torch.Generator("cuda").manual_seed(B * S + H)
+    args = _ssd_inputs(gen, cuda, B, S, H, P, N, dtype)
+    cots = (torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype),
+            torch.randn(B, H, N, P, generator=gen, device=cuda))
+    before = runtime.LAUNCHES["ssd_chunk_scan"]
+    got = _grads_on(ssd.ssd_chunk_scan, args, cots, cuda)
+    assert runtime.LAUNCHES["ssd_chunk_scan"] == before + 1  # the backward launches nothing
+    _hold_grads(got, _grads_on(ssd.ssd_chunk_scan, args, cots, "cpu"), 1e-4)
+
 def test_flash_attention_runs_float32_at_head_width_128(cuda):
     _attention_case(cuda, 1, 2, 2, 8, 8, 128, True, torch.float32)
 

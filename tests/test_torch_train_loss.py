@@ -202,10 +202,3 @@ def test_forward_returns_the_moe_aux_means():
         _, aux, _ = port_build(dense_cfg).forward(params_from_numpy(dense_cfg, _weights(port_build(dense_cfg)), "cpu"),
                                                   torch.from_numpy(tokens).long())
     assert float(aux["moe_aux"]) == float(aux["moe_z"]) == 0.0
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
-def test_ssm_families_raise_before_any_autograd(arch):
-    _, tcfg = _cfgs(arch, 2)
-    with pytest.raises(NotImplementedError, match="5c"):
-        port_build(tcfg).loss({}, {"tokens": torch.zeros(1, 8, dtype=torch.long)})

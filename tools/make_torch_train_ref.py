@@ -1,8 +1,24 @@
 """Make ``tests/data/torch_train_ref.npz``: the reference package's training
 numbers for granite-3-8b at full width, on numpy weights that the PyTorch
-port regenerates from a seed.
+port regenerates from a seed; with ``--ssm``, ``tests/data/torch_ssm_train_ref.npz``:
+the same numbers for the SSM families (falcon-mamba-7b with 2 of its 64
+layers, 0.743 B parameters; zamba2-1.2b with 6 of its 38, the first depth that
+reaches its shared attention block, 0.364 B), one entry each, every field
+stored under ``"<entry>/<field>"`` and the entries listed in ``entries``.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_train_ref.py [--check-port]
+zamba2's reference runs its Mamba2 layers through the reference's own
+per-step oracle, ``repro.kernels.ref.ssd_reference`` (the recurrence that the
+chunked ``repro.models.mamba.ssd_scan`` reformulates, equal to it in value),
+in place of ``ssd_scan``: ``jax.grad`` of ``ssd_scan`` is NaN wherever a
+chunk's log-decay passes ~88, because ``jnp.where(mask, exp(li), 0)`` takes
+exp of the masked entries above the diagonal too and their zero cotangent
+meets inf (0 x inf), and at zamba2's A (-1 to -64) and dt every gradient of
+the layers is NaN.  The swap lives in this process only; the reference
+package is not changed.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_train_ref.py [--ssm [--only ENTRY]] [--check-port]
+
+``--only`` remakes one entry of an existing SSM file and keeps the other.
 
 The configuration: granite-3-8b with 2 of its 40 layers, ``dtype="float32"``
 (full width: d_model 4096, vocab 49,155; 0.80 B parameters), weights
@@ -22,8 +38,9 @@ tokens at steps 0, 1 and 2 (``DataConfig()``).  Stored:
     schedule), each step's loss before its update, as ``make_train_step``
     reports ``total_loss``;
   * ``spread`` (and ``spread_by``, each nudge's): how far the reference itself
-    moves when one weight of both layers (``wq``, ``wk``, ``wv``, ``wo``,
-    ``w_gate``, ``w_down``, one run each) moves up by one float32 ulp,
+    moves when one weight leaf (granite: ``wq``, ``wk``, ``wv``, ``wo``,
+    ``w_gate``, ``w_down`` of both layers; the SSM entries: ``NUDGED`` below;
+    one run each) moves up by one float32 ulp,
     measured as :func:`distances` measures the port: rel loss, rel grad norm,
     the largest rel leaf norm, the largest sampled-grad error over its leaf's
     scale, the largest rel history loss.
@@ -51,21 +68,29 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "torch_train_ref.npz"
+SSM_OUT = ROOT / "tests" / "data" / "torch_ssm_train_ref.npz"
 NAME, N_LAYERS = "granite-3-8b", 2
+SSM_ENTRIES = (("falcon-mamba-7b", 2), ("zamba2-1.2b", 6))
 SEED = 0
 BATCH, SEQ = 2, 128
 STEPS = 3
 LR = 3e-4
 SAMPLES = 64
 SAMPLE_SEED = 5
-NUDGED = ("wq", "wk", "wv", "wo", "w_gate", "w_down")
+# the leaves nudged by one ulp, as key paths into the parameter tree
+NUDGED = {
+    "granite-3-8b": tuple(("layers", k) for k in ("wq", "wk", "wv", "wo", "w_gate", "w_down")),
+    "falcon-mamba-7b": tuple(("layers", k) for k in ("in_proj", "conv_w", "x_proj", "dt_proj", "A_log", "out_proj")),
+    "zamba2-1.2b": (("layers", "in_proj"), ("layers", "conv_w"), ("layers", "A_log"), ("layers", "out_proj"),
+                    ("shared", "wq"), ("shared", "w_down")),
+}
 MEASURES = ("loss", "grad_norm", "leaf_norm", "sample", "history")
 
 
-def port_cfg():
+def port_cfg(name: str = NAME, n_layers: int = N_LAYERS):
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(NAME), dtype="float32", n_layers=N_LAYERS)
+    return dataclasses.replace(get_config(name), dtype="float32", n_layers=n_layers)
 
 
 def batches(cfg) -> list[dict]:
@@ -102,7 +127,8 @@ def distances(got: dict, ref) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def reference_run(nudge: str | None = None, idx: np.ndarray | None = None) -> dict:
+def reference_run(nudge: tuple | None = None, idx: np.ndarray | None = None, name: str = NAME,
+                  n_layers: int = N_LAYERS) -> dict:
     import jax
     import jax.numpy as jnp
 
@@ -111,15 +137,17 @@ def reference_run(nudge: str | None = None, idx: np.ndarray | None = None) -> di
     from repro.optim import adamw as A
     from repro_torch.models.model import build_model as port_model
 
-    pcfg = port_cfg()
-    cfg = dataclasses.replace(jax_config(NAME), dtype="float32", n_layers=N_LAYERS)
+    pcfg = port_cfg(name, n_layers)
+    cfg = dataclasses.replace(jax_config(name), dtype="float32", n_layers=n_layers)
+    if cfg.family == "hybrid":
+        use_ssd_oracle()
     model = build_model(cfg)
     w = port_model(pcfg).init_numpy(SEED)
     params = jax.tree.map(jnp.asarray, w)
     del w
     gc.collect()
     if nudge is not None:
-        params["layers"][nudge] = jnp.nextafter(params["layers"][nudge], jnp.float32(np.inf))
+        _set(params, nudge, jnp.nextafter(_get(params, nudge), jnp.float32(np.inf)))
     vg = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b)[0]))
     opt = A.AdamWConfig(lr=LR, grad_clip=float("inf"))
     clip_at = A.AdamWConfig().grad_clip
@@ -159,6 +187,15 @@ def reference_run(nudge: str | None = None, idx: np.ndarray | None = None) -> di
     return out
 
 
+def use_ssd_oracle() -> None:
+    """Run the reference's Mamba2 layers through its per-step SSD oracle
+    (the module docstring says why), in this process."""
+    from repro.kernels import ref as jax_ref  # engine-oracle: the per-step SSD recurrence
+    from repro.models import ssm_models
+
+    ssm_models.ssd_scan = lambda x, dt, A, Bm, Cm, chunk=64, state0=None: jax_ref.ssd_reference(x, dt, A, Bm, Cm)
+
+
 def _paths(tree, prefix=()):
     for k in sorted(tree):
         if isinstance(tree[k], dict):
@@ -182,7 +219,7 @@ def _set(tree, path, value):
 # --------------------------------------------------------------------------- #
 
 
-def port_run(ref, device="cpu") -> dict:
+def port_run(ref, device="cpu", name: str = NAME, n_layers: int = N_LAYERS) -> dict:
     """The port's numbers for the fixture's configuration on ``device``."""
     import torch
 
@@ -192,7 +229,7 @@ def port_run(ref, device="cpu") -> dict:
     from repro_torch.optim import AdamWConfig, global_norm, init_opt_state
     from repro_torch.train import make_train_step
 
-    cfg = port_cfg()
+    cfg = port_cfg(name, n_layers)
     model = build_model(cfg)
     params = params_from_numpy(cfg, model.init_numpy(SEED), device)
     data = batches(cfg)
@@ -216,43 +253,73 @@ def port_run(ref, device="cpu") -> dict:
     return got
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--check-port", action="store_true", help="then hold the port on the CPU against the file")
-    args = ap.parse_args()
+def entry(name: str, n_layers: int) -> dict:
+    """One configuration's fixture fields, its spread over ``NUDGED[name]``."""
     t0 = time.perf_counter()
-    ref = reference_run()
-    print(f"reference: loss {ref['loss']:.8g}, grad norm {ref['grad_norm']:.8g}, history {ref['history']} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    out = {"name": np.asarray(NAME), "n_layers": np.int64(N_LAYERS), "seed": np.int64(SEED),
+    ref = reference_run(name=name, n_layers=n_layers)
+    print(f"reference {name}@{n_layers}: loss {ref['loss']:.8g}, grad norm {ref['grad_norm']:.8g}, history "
+          f"{ref['history']} ({time.perf_counter() - t0:.1f} s)")
+    cfg = port_cfg(name, n_layers)
+    out = {"name": np.asarray(name), "n_layers": np.int64(n_layers), "seed": np.int64(SEED),
            "batch": np.int64(BATCH), "seq": np.int64(SEQ), "lr": np.float64(LR),
            "loss": np.float64(ref["loss"]), "grad_norm": np.float64(ref["grad_norm"]),
            "leaves": np.asarray(ref["leaves"]), "leaf_size": np.asarray(ref["leaf_size"], np.int64),
            "leaf_norm": np.asarray(ref["leaf_norm"], np.float64), "idx": ref["idx"],
            "sample": ref["sample"].astype(np.float32), "history": ref["history"],
            "measures": np.asarray(MEASURES), "numpy": np.asarray(np.__version__),
-           "tokens": np.stack([b["tokens"] for b in batches(port_cfg())]),
-           "labels": np.stack([b["labels"] for b in batches(port_cfg())])}
+           "tokens": np.stack([b["tokens"] for b in batches(cfg)]),
+           "labels": np.stack([b["labels"] for b in batches(cfg)])}
     spread = []
-    for leaf in NUDGED:
+    for leaf in NUDGED[name]:
         t0 = time.perf_counter()
-        moved = reference_run(leaf, ref["idx"])
+        moved = reference_run(leaf, ref["idx"], name, n_layers)
         d = distances(moved, out)
         spread.append([d[k] for k in MEASURES])
-        print(f"nudge {leaf}: " + ", ".join(f"{k} {d[k]:.3g}" for k in MEASURES)
+        print(f"nudge {'/'.join(leaf)}: " + ", ".join(f"{k} {d[k]:.3g}" for k in MEASURES)
               + f" ({time.perf_counter() - t0:.1f} s)")
     out["spread_by"] = np.asarray(spread, np.float64)
     out["spread"] = out["spread_by"].max(0)
+    print(f"{name}@{n_layers}: spread " + ", ".join(f"{k} {s:.3g}" for k, s in zip(MEASURES, out["spread"])))
+    return out
+
+
+def check_port(ref: dict, name: str, n_layers: int) -> None:
+    t0 = time.perf_counter()
+    d = distances(port_run(ref, "cpu", name, n_layers), ref)
+    print(f"port {name}@{n_layers} on the CPU ({time.perf_counter() - t0:.1f} s): " + ", ".join(
+        f"{k} {d[k]:.3g} (spread {s:.3g}, {d[k] / max(s, 1e-300):.2f}x)" for k, s in zip(MEASURES, ref["spread"])))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ssm", action="store_true", help="write the SSM families' file instead")
+    ap.add_argument("--only", default=None, help="with --ssm: remake this entry of the existing file alone")
+    ap.add_argument("--check-port", action="store_true", help="then hold the port on the CPU against the file")
+    args = ap.parse_args()
+    if args.ssm:
+        out = {"entries": np.asarray([f"{n}@{L}" for n, L in SSM_ENTRIES])}
+        if args.only is not None:
+            out.update({k: v for k, v in np.load(SSM_OUT).items() if not k.startswith(f"{args.only}/")})
+        for name, n_layers in SSM_ENTRIES:
+            if args.only not in (None, f"{name}@{n_layers}"):
+                continue
+            out.update({f"{name}@{n_layers}/{k}": v for k, v in entry(name, n_layers).items()})
+            gc.collect()
+        SSM_OUT.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(SSM_OUT, **out)
+        print(f"wrote {SSM_OUT} ({SSM_OUT.stat().st_size} bytes)")
+        if args.check_port:
+            saved = dict(np.load(SSM_OUT))
+            for name, n_layers in SSM_ENTRIES:
+                key = f"{name}@{n_layers}/"
+                check_port({k[len(key):]: v for k, v in saved.items() if k.startswith(key)}, name, n_layers)
+        return
+    out = entry(NAME, N_LAYERS)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT} ({OUT.stat().st_size} bytes); spread " + ", ".join(
-        f"{k} {s:.3g}" for k, s in zip(MEASURES, out["spread"])))
+    print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
     if args.check_port:
-        ref_file = dict(np.load(OUT))
-        t0 = time.perf_counter()
-        d = distances(port_run(ref_file), ref_file)
-        print(f"port on the CPU ({time.perf_counter() - t0:.1f} s): " + ", ".join(
-            f"{k} {d[k]:.3g} (spread {s:.3g}, {d[k] / max(s, 1e-300):.2f}x)" for k, s in zip(MEASURES, out["spread"])))
+        check_port(dict(np.load(OUT)), NAME, N_LAYERS)
 
 
 if __name__ == "__main__":
