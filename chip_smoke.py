@@ -165,8 +165,23 @@ Phases (each raises on failure, so any failure exits non-zero):
    before CUDA starts);
 10. the launch path, with the launch counts set to 0 just before and read
    just after: ``repro_torch.launch.train --reduced`` on falcon-mamba-7b and
-   ``repro_torch.launch.serve --reduced`` on zamba2-1.2b, as a user runs them;
-11. the agreement path, with the launch counts set to 0 just before and read
+   ``repro_torch.launch.serve --reduced`` on zamba2-1.2b, as a user runs them
+   (each under ``make_local_mesh()`` over a one-rank group of its own);
+11. the mesh path, with the launch counts set to 0 just before and read just
+   after: a one-rank NCCL process group and ``make_local_mesh()``, a (1, 1)
+   ``DeviceMesh``; under deterministic algorithms, one ``make_train_step``
+   step of granite-3-8b (full width, 2 of 40 layers) and of falcon-mamba-7b
+   (16 of 64 layers) at 1 x 4,096 tokens, and an ``Engine`` request of
+   granite-3-8b @2 and of zamba2-1.2b (full depth) with a 4,096-token prompt
+   and 4 decode steps, each run on the mesh equal bit for bit to the same
+   run without one (loss, grad norm, updated parameters; logits and tokens)
+   with equal K3/K4/K5 launches; the cost counter (``launch.hlo_costs``) on
+   granite's mesh step, its counted FLOPs and bytes beside the step's time;
+   then the two dry runs (``python -m repro_torch.launch.dryrun`` of
+   granite-3-8b and llama4-scout-17b-a16e at train_4k on the 16x16 mesh, a
+   fake group of 256 ranks), started on the host right after the build,
+   each exiting 0 with an ``ok`` record, their roofline terms printed;
+12. the agreement path, with the launch counts set to 0 just before and read
    just after: tests/data/torch_ssm_train_ref.npz (made by
    tools/make_torch_train_ref.py --ssm: falcon-mamba-7b at 2 layers and
    zamba2-1.2b at 6, full width, float32, 2 x 128 tokens; the loss, grad
@@ -2991,6 +3006,276 @@ def phase_pool(device, smi: str, keep: dict) -> None:
     print(f"  pool path wall {time.perf_counter() - t_path:.1f} s")
 
 
+# the mesh path: the port's DeviceMesh layer on a one-rank (1, 1) mesh, each run
+# held bit for bit against the same run without a mesh
+MESH_TRAIN = (("granite-3-8b", 2), ("falcon-mamba-7b", 16))  # model, depth (granite: 2 of 40, falcon: 16 of 64)
+MESH_SERVE = (("granite-3-8b", 2), ("zamba2-1.2b", None))  # None: full depth
+MESH_TOKENS = 4096  # 1 x 4,096 tokens a train step and a prompt
+MESH_DECODE_STEPS = 4
+MESH_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
+# the dry runs, on the host, as a user runs them: full size on the 16x16 mesh (a fake group of 256 ranks)
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("llama4-scout-17b-a16e", "train_4k"))
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryruns() -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS, on the
+    host (no CUDA device), all started together; collected by
+    :func:`collect_dryruns`."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        log = open(os.path.join(out, f"{arch}__{shape}.log"), "w")
+        procs[(arch, shape)] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", out],
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env), log)
+    return {"out": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def collect_dryruns(runs: dict) -> dict:
+    """Wait for the dry runs; each must exit 0 with an ``ok`` record.  Prints
+    their roofline terms (counts over the H100 constants, not measurements)."""
+    import shutil
+
+    recs = {}
+    try:
+        for (arch, shape), (proc, log) in runs["procs"].items():
+            left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - runs["t0"]))
+            try:
+                rc = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = "timeout"
+            log.close()
+            text = pathlib.Path(log.name).read_text()
+            check(rc == 0, f"dryrun {arch} x {shape}: exit {rc}\n{text[-3000:]}")
+            rec = json.loads(pathlib.Path(runs["out"], f"{arch}__{shape}__16x16.json").read_text())
+            check(rec.get("ok") is True, f"dryrun {arch} x {shape}: {rec.get('error')}")
+            r = rec["roofline"]
+            print(f"  dryrun {arch} x {shape} [16x16, {rec['parallelism']}]: per rank {rec['flops_per_device']:.4g} "
+                  f"FLOPs, {rec['bytes_per_device']:.4g} bytes, collectives {rec['collectives']['total_bytes']:.4g} "
+                  f"link bytes, hbm {rec['hbm_per_device_gb']} GB; roofline t_compute {r['t_compute']:.6g} s, "
+                  f"t_memory {r['t_memory']:.6g} s, t_collective {r['t_collective']:.6g} s -> {r['bottleneck']} "
+                  f"(counts over the H100 constants; run {rec['compile_s']} s)")
+            recs[(arch, shape)] = rec
+    finally:
+        for proc, log in runs["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(runs["out"], ignore_errors=True)
+    return recs
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _mesh_train(device, mesh, name: str, layers: int) -> dict:
+    """One ``make_train_step`` step of ``name`` at full width and ``layers``
+    layers on 1 x MESH_TOKENS tokens, without and with ``mesh``, from the same
+    seeded weights and batch: the loss, the grad norm and every updated
+    parameter equal bit for bit, and the scan or attention launches equal."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import distribute_train_state
+
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    model = build_model(cfg)
+    opt, tcfg = AdamWConfig(), TrainConfig()
+    batch = make_batch(cfg, SHAPES["train_4k"], 0, batch_override=1, seq_override=MESH_TOKENS)
+    kept, counts = {}, {}
+    for run in ("plain", "mesh"):
+        state = init_train_state(model, 0, opt, tcfg, device)
+        if run == "mesh":
+            state = distribute_train_state(state, model, opt, tcfg, mesh)
+        step = make_train_step(model, opt, tcfg, mesh=mesh if run == "mesh" else None)
+        before = dict(runtime.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[run] = {k: runtime.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+        kept[run] = ({k: _full(v) for k, v in metrics.items()}, [_full(p) for p in tu.leaves(state["params"])], wall)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (m0, p0, w0), (m1, p1, w1) = kept["plain"], kept["mesh"]
+    check(all(torch.equal(m0[k], m1[k]) for k in ("loss", "grad_norm", "total_loss")),
+          f"mesh {name}: metrics {[(k, float(m0[k]), float(m1[k])) for k in ('loss', 'grad_norm')]}")
+    bad = [i for i, (a, b) in enumerate(zip(p0, p1)) if not torch.equal(a, b)]
+    check(not bad, f"mesh {name}: {len(bad)} of {len(p0)} updated parameters differ")
+    check(counts["plain"] == counts["mesh"], f"mesh {name}: launches {counts}")
+    print(f"  mesh train {name} @{layers} layers, 1 x {MESH_TOKENS}: loss {float(m1['loss']):.6f}, grad norm "
+          f"{float(m1['grad_norm']):.6f}, {len(p1)} updated parameters, all equal bit for bit to the run without a "
+          f"mesh; launches {counts['mesh']} both; step wall {w0:.2f} s plain, {w1:.2f} s on the mesh")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["mesh"]
+
+
+class _Logged:
+    """A model whose prefill and decode logits are kept (on the host)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, k):
+        return getattr(self.model, k)
+
+    def prefill(self, *a, **kw):
+        out = self.model.prefill(*a, **kw)
+        self.logits.append(_full(out[0]).float().cpu())
+        return out
+
+    def decode_step(self, *a, **kw):
+        out = self.model.decode_step(*a, **kw)
+        self.logits.append(_full(out[0]).float().cpu())
+        return out
+
+
+def _mesh_serve(device, mesh, name: str, layers) -> dict:
+    """One greedy request of a MESH_TOKENS-token prompt and MESH_DECODE_STEPS
+    decode steps through ``Engine``, without and with ``mesh``: the prefill
+    and decode logits and the tokens equal bit for bit, the launches equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, MESH_TOKENS).astype(np.int32)
+    out, counts = {}, {}
+    for run in ("plain", "mesh"):
+        logged = _Logged(model)
+        eng = Engine(logged, params, slots=1, max_len=MESH_TOKENS + 8, device=device,
+                     mesh=mesh if run == "mesh" else None)
+        eng.submit(Request(rid=0, prompt=prompt, max_tokens=MESH_DECODE_STEPS + 1, temperature=0.0, seed=0))
+        before = dict(runtime.LAUNCHES)
+        done = eng.run()
+        torch.cuda.synchronize()
+        counts[run] = {k: runtime.LAUNCHES[k] - before[k] for k in MESH_KERNELS}
+        out[run] = ([np.asarray(t).tolist() for t in done[0].generated], logged.logits)
+        del eng
+        gc.collect()
+    (t0, l0), (t1, l1) = out["plain"], out["mesh"]
+    check(t0 == t1, f"mesh serve {name}: tokens {t0} against {t1}")
+    check(len(l0) == len(l1) == MESH_DECODE_STEPS + 1 and all(torch.equal(a, b) for a, b in zip(l0, l1)),
+          f"mesh serve {name}: the logits differ")
+    check(counts["plain"] == counts["mesh"], f"mesh serve {name}: launches {counts}")
+    print(f"  mesh serve {name}{f' @{layers} layers' if layers else ''}: prefill of {MESH_TOKENS} tokens and "
+          f"{MESH_DECODE_STEPS} decode steps, tokens {t1} and logits equal bit for bit to the run without a mesh; "
+          f"launches {counts['mesh']} both")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["mesh"]
+
+
+def _mesh_costs(device, mesh) -> None:
+    """The cost counter (``launch.hlo_costs``) on granite's mesh train step:
+    counted FLOPs and bytes beside the measured step time, their shares of
+    the H100's bf16 peak and HBM rate, and model FLOPs (``train_bound``).
+    No claim rides on it."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.hlo_costs import trace
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import distribute_train_state
+
+    name, layers = MESH_TRAIN[0]
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    model = build_model(cfg)
+    opt, tcfg = AdamWConfig(), TrainConfig()
+    state = distribute_train_state(init_train_state(model, 0, opt, tcfg, device), model, opt, tcfg, mesh)
+    step = make_train_step(model, opt, tcfg, mesh=mesh)
+    batch = make_batch(cfg, SHAPES["train_4k"], 0, batch_override=1, seq_override=MESH_TOKENS)
+    state, _ = step(state, batch)  # warm
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    costs = trace(step, state, batch).costs()
+    torch.cuda.synchronize()
+    flops, nbytes = costs["flops"], costs["bytes"]
+    model_flops = train_bound(cfg, 1, MESH_TOKENS)["flops"]
+    print(f"  cost counter, {name} @{layers} layers mesh train step (1 x {MESH_TOKENS}): counted {flops:.6g} FLOPs "
+          f"(dot {costs['flops_by_op'].get('dot', 0):.6g}), {nbytes:.6g} bytes; step {ms:.3f} ms (CUDA events, "
+          f"median of 3); FLOPs / 989e12 = {flops / BF16_TC_OPS_PER_S * 1e3:.3f} ms "
+          f"({flops / BF16_TC_OPS_PER_S * 1e3 / ms:.3f} of the step), bytes / 3.35e12 = "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes / HBM_BYTES_PER_S * 1e3 / ms:.3f} of the step); "
+          f"model FLOPs (6ND + attention) {model_flops:.6g}")
+    print("    by op: " + ", ".join(f"{k} {v:.4g} FLOPs" for k, v in sorted(costs["flops_by_op"].items())) + "; "
+          + ", ".join(f"{k} {v:.4g} B" for k, v in sorted(costs["bytes_by_op"].items())))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(device, dryruns: dict) -> dict:
+    """The mesh path: a one-rank NCCL process group (a FileStore) and
+    ``make_local_mesh()``, a (1, 1) DeviceMesh on the card; the training and
+    serving runs of MESH_TRAIN and MESH_SERVE each equal bit for bit to the
+    same run without a mesh, under deterministic algorithms; the cost
+    counter on granite's step; then the dry runs started at the top of the
+    run, collected.  Returns the mesh runs' launches."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    counts = {k: 0 for k in MESH_KERNELS}
+    torch.cuda.set_device(device.index if device.index is not None else torch.cuda.current_device())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        torch.use_deterministic_algorithms(True)
+        try:
+            mesh = make_local_mesh()
+            print(f"  mesh: {mesh} ({mesh.mesh_dim_names}, shape {tuple(mesh.shape)})")
+            for name, layers in MESH_TRAIN:
+                for k, n in _mesh_train(device, mesh, name, layers).items():
+                    counts[k] += n
+            for name, layers in MESH_SERVE:
+                for k, n in _mesh_serve(device, mesh, name, layers).items():
+                    counts[k] += n
+            _mesh_costs(device, mesh)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+    collect_dryruns(dryruns)
+    return counts
+
+
 SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
 DSE_KERNELS = ("mapper_carries", "mapper_carries_backward")
 SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
@@ -3049,6 +3334,8 @@ def main() -> int:
     device = runtime.resolve_device(None)
     smi = phase_env()
     phase_build()
+    # the mesh path's dry runs, on the host while the card runs the other paths
+    dryruns = start_dryruns()
     # the agreement path's numpy weights for the transformer and SSM fixtures,
     # made on host threads while the other paths run
     lm_weights = prefetch_agree_weights(LM_FIXTURE)
@@ -3105,6 +3392,10 @@ def main() -> int:
     for k, n in drive("launch", [lambda: phase_launch(device)], LAUNCH_KERNELS).items():
         launches[k] = launches.get(k, 0) + n
     print(f"launch path wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, n in drive("mesh", [lambda: phase_mesh(device, dryruns)], MESH_KERNELS).items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"mesh path wall {time.perf_counter() - t0:.1f} s")
     print("agreement with the reference package (fixtures), float32:")
     t0 = time.perf_counter()
     import numpy as np

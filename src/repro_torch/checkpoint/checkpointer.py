@@ -17,6 +17,12 @@ path (``['params']['layers']['wq']``, ``['opt']['m']['layers']['wq'].codes``,
 ``['step']``; ``repro_torch.tree``), so a checkpoint of either package
 restores in the other.  bf16 leaves are stored as float32 (numpy has no
 bf16) and cast back to the ``like`` leaf's type on restore.
+
+A state on a device mesh (DTensor leaves): ``save`` gathers each leaf whole
+on every rank (a collective, so every rank calls it) and rank 0 of the
+process group writes the files; ``restore(shardings=)`` loads each leaf
+whole and distributes it onto its placements.  The files are the same as
+one device's, so a checkpoint moves between meshes of any shape.
 """
 from __future__ import annotations
 
@@ -31,11 +37,30 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.kernels import runtime
+from repro_torch.models.sharding import distribute, is_dtensor
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoint files: rank 0 of a started
+    process group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 def _to_host(x) -> np.ndarray:
-    """A copy on the host (never a view: the caller's tensor changes in place)."""
+    """A copy on the host (never a view: the caller's tensor changes in place);
+    a DTensor gathered whole first."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if is_dtensor(x):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.to("cpu", copy=True).numpy()
@@ -57,6 +82,8 @@ class Checkpointer:
         self.wait()  # one in-flight save at a time
         host = [(path, _to_host(x)) for path, x in tu.leaves_with_path(state)]
         extra = dict(extra or {})
+        if not _writer():
+            return
         if self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, host, extra), daemon=True)
             self._thread.start()
@@ -65,9 +92,12 @@ class Checkpointer:
             self.wait()
 
     def wait(self):
+        """Wait for the save in flight (and, under a process group of several
+        ranks, for every rank: the writer's files are then on disk for all)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -111,11 +141,16 @@ class Checkpointer:
         """Rebuild the state tree (``step`` None: the latest).  ``like`` gives
         the structure and each leaf's dtype: a tree of tensors, or of meta
         tensors (``train.abstract_train_state``).  Leaves land on ``device``
-        (None: the card).  Returns (state, the save's ``extra``)."""
-        if shardings is not None:
-            raise NotImplementedError("Checkpointer.restore(shardings=): restoring onto a device mesh comes with "
-                                      "launch/ (ROADMAP.md queue 1, item 6)")
+        (None: the card); with ``shardings`` (``launch.specs.as_placements``:
+        a tree of ``NamedPlacements`` of ``like``'s structure, None for a
+        plain leaf) each leaf is distributed onto its placements.  Returns (state, the save's
+        ``extra``)."""
         dev = runtime.resolve_device(device)
+        places = None
+        if shardings is not None:  # a NamedPlacements (or None: a plain tensor) per leaf of like
+            places = tu.leaves(shardings, lambda x: x is None or hasattr(x, "placements"))
+            if len(places) != len(tu.leaves(like)):
+                raise ValueError(f"restore: shardings has {len(places)} leaves, like has {len(tu.leaves(like))}")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -135,5 +170,9 @@ class Checkpointer:
                     raise ValueError(f"{path}: shape {tuple(t.shape)} in the checkpoint, {tuple(leaf_like.shape)} "
                                      "expected")
                 t = t.to(leaf_like.dtype)
-            vals.append(t.to(dev))
+            t = t.to(dev)
+            where = None if places is None else places[len(vals)]
+            if where is not None:
+                t = distribute(t, where.mesh, where.spec)
+            vals.append(t)
         return tu.unflatten_like(like, vals), manifest["extra"]

@@ -26,8 +26,10 @@ every tag at once (:func:`trace_count` with no arguments).
 from __future__ import annotations
 
 from collections import Counter
+from contextlib import contextmanager
 
 _counts: Counter = Counter()
+_loops: list | None = None  # the active loop recorder (launch.hlo_stats), if any
 
 
 def count_trace(tag: str) -> None:
@@ -59,3 +61,23 @@ def reset(prefix: str | None = None) -> None:
     else:
         for k in [k for k in _counts if k.startswith(prefix)]:
             del _counts[k]
+
+
+@contextmanager
+def record_loops():
+    """Collect the (name, trip count) of every layer loop a program notes
+    (:func:`note_loop`) while the context is open: an eager program has no
+    loop of its own to read them from."""
+    global _loops
+    prev, _loops = _loops, []
+    try:
+        yield _loops
+    finally:
+        _loops = prev
+
+
+def note_loop(name: str, trips: int) -> None:
+    """A loop over ``trips`` layers (or chunks) is about to run; free when no
+    recorder is open."""
+    if _loops is not None:
+        _loops.append((name, int(trips)))

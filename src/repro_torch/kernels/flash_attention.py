@@ -12,6 +12,12 @@ tensor-core product in float32 would be TF32).  That kernel is compiled at
 three width caps (64, 128, 256) and takes any D up to each.  Each kernel has
 its own launch count.  Both kernels mask ragged Sq and Skv themselves, so no
 block size has to divide the sequence.
+
+On DTensors the op has a sharding rule: q, k, v all replicated, all split
+over batch, or all split over heads (each shard holding the KV heads its
+query heads read).  The sequence and the head width it needs whole: a
+placement there is redistributed to one of those, and each rank launches the
+kernel on its shard.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
                        scale: float) -> torch.Tensor:
     """The plain version (CPU implementation of the op)."""
     _check(q, k, v)
-    return reference_attention(q, k, v, causal=causal, scale=scale)
+    return reference_attention(q, k, v, causal=causal, scale=scale).contiguous()
 
 
 @flash_attention_op.register_kernel("cuda")
@@ -89,7 +95,22 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
 
 @flash_attention_op.register_fake
 def _flash_attention_fake(q, k, v, causal, scale):
-    return torch.empty_like(q)
+    return q.new_empty(q.shape)
+
+
+def _sharding(q, k, v, causal, scale):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [([p], [p, p, p, None, None]) for p in (Replicate(), Shard(0), Shard(1))]
+
+
+def _register_sharding() -> None:
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(_sharding)
+
+
+_register_sharding()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

@@ -23,6 +23,13 @@ Each scan is a torch op (``torch.ops.repro_torch.*``): its CUDA
 implementation launches the kernel, its CPU implementation is the plain
 version (log-step doubling scans).  The dispatcher picks by the tensor's
 device; there is no other fallback.
+
+On DTensors the selective scan's ops (forward, states, backward
+``repro_torch::selective_scan_backward``) have sharding rules: everything
+split over batch, or over channels (A and D with them, B and C replicated;
+their gradients partial sums), or replicated.  The sequence and the state
+width they need whole: a placement there is redistributed, and each rank
+runs the kernel on its shard.
 """
 from __future__ import annotations
 
@@ -273,7 +280,8 @@ def selective_scan_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: to
                       D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version (CPU implementation of the op)."""
     _check_selective(u, dt, A, Bm, Cm, D)
-    return selective_scan_plain(u, dt, A, Bm, Cm, D)
+    # contiguous, as the kernel's outputs and the fake's are (DTensor views them)
+    return tuple(t.contiguous() for t in selective_scan_plain(u, dt, A, Bm, Cm, D))
 
 
 @selective_scan_op.register_kernel("cuda")
@@ -304,7 +312,7 @@ def _selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
 
 @selective_scan_op.register_fake
 def _selective_scan_fake(u, dt, A, Bm, Cm, D):
-    return torch.empty_like(u), u.new_empty((u.shape[0], u.shape[2], A.shape[1]), dtype=torch.float32)
+    return u.new_empty(u.shape), u.new_empty((u.shape[0], u.shape[2], A.shape[1]), dtype=torch.float32)
 
 
 def _entering_shape(u: torch.Tensor, A: torch.Tensor) -> tuple[int, ...]:
@@ -317,7 +325,7 @@ def selective_scan_states_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """(y, final state, the state entering each ``CHUNK``-step chunk
     [B, chunks, C, N] float32): the plain version (CPU implementation)."""
     _check_selective(u, dt, A, Bm, Cm, D)
-    return selective_scan_states(u, dt, A, Bm, Cm, D, chunk=CHUNK)
+    return tuple(t.contiguous() for t in selective_scan_states(u, dt, A, Bm, Cm, D, chunk=CHUNK))
 
 
 @selective_scan_states_op.register_kernel("cuda")
@@ -331,6 +339,49 @@ def _selective_scan_states_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tens
 def _selective_scan_states_fake(u, dt, A, Bm, Cm, D):
     y, state = _selective_scan_fake(u, dt, A, Bm, Cm, D)
     return y, state, u.new_empty(_entering_shape(u, A), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_backward", mutates_args=())
+def selective_scan_backward_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                               Cm: torch.Tensor, D: torch.Tensor, entering: torch.Tensor, g_y: torch.Tensor,
+                               g_state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                                      torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(du, ddt, dA, dB, dC, dD): ``ref.selective_scan_bwd``, plain PyTorch on every device."""
+    with torch.profiler.record_function(BACKWARD_RANGE):
+        return tuple(g.contiguous() for g in selective_scan_bwd(u, dt, A, Bm, Cm, D, entering, g_y, g_state,
+                                                                chunk=CHUNK))
+
+
+@selective_scan_backward_op.register_fake
+def _selective_scan_backward_fake(u, dt, A, Bm, Cm, D, entering, g_y, g_state):
+    return tuple(t.new_empty(t.shape) for t in (u, dt, A, Bm, Cm, D))  # contiguous, as the op's are
+
+
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R, S0, S2 = Replicate(), Shard(0), Shard(2)
+    ops = torch.ops.repro_torch
+
+    @register_sharding(ops.selective_scan.default)
+    def _scan(u, dt, A, Bm, Cm, D):
+        return [([R, R], [R] * 6), ([S0, S0], [S0, S0, R, S0, S0, R]), ([S2, Shard(1)], [S2, S2, S0, R, R, S0])]
+
+    @register_sharding(ops.selective_scan_states.default)
+    def _states(u, dt, A, Bm, Cm, D):
+        return [([R] * 3, [R] * 6), ([S0] * 3, [S0, S0, R, S0, S0, R]),
+                ([S2, Shard(1), S2], [S2, S2, S0, R, R, S0])]
+
+    @register_sharding(ops.selective_scan_backward.default)
+    def _backward(u, dt, A, Bm, Cm, D, entering, g_y, g_state):
+        gs = lambda p: None if g_state is None else p  # noqa: E731
+        return [([R] * 6, [R] * 8 + [gs(R)]),
+                ([S0, S0, Partial(), S0, S0, Partial()], [S0, S0, R, S0, S0, R, S0, S0, gs(S0)]),
+                ([S2, S2, S0, Partial(), Partial(), S0], [S2, S2, S0, R, R, S0, S2, S2, gs(Shard(1))])]
+
+
+_register_sharding()
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -349,8 +400,8 @@ class _SelectiveScan(torch.autograd.Function):
         u, dt, A, Bm, Cm, D, entering = ctx.saved_tensors
         if g_y is None:
             g_y = torch.zeros_like(u)
-        with torch.profiler.record_function(BACKWARD_RANGE):
-            grads = selective_scan_bwd(u, dt, A, Bm, Cm, D, entering, g_y, g_state, chunk=CHUNK)
+        grads = selective_scan_backward_op(u, dt, A, Bm, Cm, D, entering, g_y.contiguous(),
+                                           None if g_state is None else g_state.contiguous())
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 

@@ -12,7 +12,13 @@ chunk is masked, so any sequence length works.
 With gradients on, :func:`ssd_chunk_scan` keeps the state entering each
 chunk, which the kernels leave in their scratch (the plain version returns
 it too), and its backward (``ref.ssd_scan_bwd``, plain PyTorch on the inputs'
-device) starts from them.
+device) starts from them; it is an op of its own,
+``repro_torch::ssd_chunk_scan_backward``.
+
+On DTensors the three ops have sharding rules: everything split over batch,
+or over heads (A with them, B and C replicated; their gradients partial
+sums), or replicated.  The sequence, P and N they need whole: a placement
+there is redistributed, and each rank runs the kernels on its shard.
 """
 from __future__ import annotations
 
@@ -82,7 +88,8 @@ def ssd_chunk_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: to
                       Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version (CPU implementation of the op)."""
     _check(x, dt, A, Bm, Cm)
-    return ssd_scan(x, dt, A, Bm, Cm, chunk=CHUNK)
+    # contiguous, as the kernels' outputs and the fake's are (DTensor views them)
+    return tuple(t.contiguous() for t in ssd_scan(x, dt, A, Bm, Cm, chunk=CHUNK))
 
 
 def scratch_for(x: torch.Tensor, Bt: int, S: int, H: int, P: int, N: int) -> torch.Tensor:
@@ -124,7 +131,7 @@ def _ssd_chunk_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm:
 @ssd_chunk_scan_op.register_fake
 def _ssd_chunk_scan_fake(x, dt, A, Bm, Cm):
     Bt, _, H, P = x.shape
-    return torch.empty_like(x), x.new_empty((Bt, H, Bm.shape[-1], P), dtype=torch.float32)
+    return x.new_empty(x.shape), x.new_empty((Bt, H, Bm.shape[-1], P), dtype=torch.float32)
 
 
 def _entering_shape(x: torch.Tensor, Bm: torch.Tensor) -> tuple[int, ...]:
@@ -138,7 +145,7 @@ def ssd_chunk_scan_states_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """(y, final state, the state entering each chunk [B, chunks, H, N, P]
     float32): the plain version (CPU implementation)."""
     _check(x, dt, A, Bm, Cm)
-    return ssd_scan_phases(x, dt, A, Bm, Cm, chunk=CHUNK)
+    return tuple(t.contiguous() for t in ssd_scan_phases(x, dt, A, Bm, Cm, chunk=CHUNK))
 
 
 @ssd_chunk_scan_states_op.register_kernel("cuda")
@@ -151,6 +158,50 @@ def _ssd_chunk_scan_states_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tens
 def _ssd_chunk_scan_states_fake(x, dt, A, Bm, Cm):
     y, state = _ssd_chunk_scan_fake(x, dt, A, Bm, Cm)
     return y, state, x.new_empty(_entering_shape(x, Bm), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_scan_backward", mutates_args=())
+def ssd_chunk_scan_backward_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                               Cm: torch.Tensor, entering: torch.Tensor, g_y: torch.Tensor,
+                               g_state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                                      torch.Tensor, torch.Tensor]:
+    """(dx, ddt, dA, dB, dC): ``ref.ssd_scan_bwd``, plain PyTorch on every device."""
+    with torch.profiler.record_function(BACKWARD_RANGE):
+        return tuple(g.contiguous() for g in ssd_scan_bwd(x, dt, A, Bm, Cm, entering, g_y, g_state, chunk=CHUNK))
+
+
+@ssd_chunk_scan_backward_op.register_fake
+def _ssd_chunk_scan_backward_fake(x, dt, A, Bm, Cm, entering, g_y, g_state):
+    return tuple(t.new_empty(t.shape) for t in (x, dt, A, Bm, Cm))  # contiguous, as the op's are
+
+
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R, S0 = Replicate(), Shard(0)
+    ops = torch.ops.repro_torch
+
+    @register_sharding(ops.ssd_chunk_scan.default)
+    def _scan(x, dt, A, Bm, Cm):
+        return [([R, R], [R] * 5), ([S0, S0], [S0, S0, R, S0, S0]),
+                ([Shard(2), Shard(1)], [Shard(2), Shard(2), S0, R, R])]
+
+    @register_sharding(ops.ssd_chunk_scan_states.default)
+    def _states(x, dt, A, Bm, Cm):
+        return [([R] * 3, [R] * 5), ([S0] * 3, [S0, S0, R, S0, S0]),
+                ([Shard(2), Shard(1), Shard(2)], [Shard(2), Shard(2), S0, R, R])]
+
+    @register_sharding(ops.ssd_chunk_scan_backward.default)
+    def _backward(x, dt, A, Bm, Cm, entering, g_y, g_state):
+        gs = lambda p: None if g_state is None else p  # noqa: E731
+        return [([R] * 5, [R] * 7 + [gs(R)]),
+                ([S0, S0, Partial(), S0, S0], [S0, S0, R, S0, S0, S0, S0, gs(S0)]),
+                ([Shard(2), Shard(2), S0, Partial(), Partial()],
+                 [Shard(2), Shard(2), S0, R, R, Shard(2), Shard(2), gs(Shard(1))])]
+
+
+_register_sharding()
 
 
 class _SSDChunkScan(torch.autograd.Function):
@@ -169,8 +220,8 @@ class _SSDChunkScan(torch.autograd.Function):
         x, dt, A, Bm, Cm, entering = ctx.saved_tensors
         if g_y is None:
             g_y = torch.zeros_like(x)
-        with torch.profiler.record_function(BACKWARD_RANGE):
-            grads = ssd_scan_bwd(x, dt, A, Bm, Cm, entering, g_y, g_state, chunk=CHUNK)
+        grads = ssd_chunk_scan_backward_op(x, dt, A, Bm, Cm, entering, g_y.contiguous(),
+                                           None if g_state is None else g_state.contiguous())
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 

@@ -1,5 +1,5 @@
-"""Entry points: ``python -m repro_torch.launch.train`` and
-``python -m repro_torch.launch.serve``, the reference's launchers on one
-device (the card unless ``--device`` names another).  The reference's mesh
-modules (``mesh``, ``specs``, ``policy``, ``dryrun``, ``hlo_stats``) and
-``hlo_costs`` are not ported yet (ROADMAP.md, queue 1 items 6a-6b)."""
+"""Entry points and the mesh layer: ``python -m repro_torch.launch.train``,
+``.serve`` and ``.dryrun``; the device meshes (``mesh``), the spec trees
+(``specs``), the parallelism policy (``policy``) and the per-rank cost and
+collective counters (``hlo_costs``, ``hlo_stats``)."""
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh, mesh_chips  # noqa: F401

@@ -1,5 +1,6 @@
 """Serving launcher: batched requests through the continuous-batching engine
-on one device.
+on a device mesh (``make_local_mesh()`` over the process group:
+``torchrun``'s, or one rank of its own).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b --reduced \
       --requests 8 --max-tokens 16 [--device cpu]
@@ -15,6 +16,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_local_mesh, process_group
 from repro_torch.models.model import build_model
 from repro_torch.serving import Engine, Request
 
@@ -31,13 +33,17 @@ def main(argv=None) -> list:
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    with process_group(args.device):
+        return _serve(args, make_local_mesh())
 
+
+def _serve(args, mesh) -> list:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(0, args.device)
-    eng = Engine(model, params, slots=args.slots, max_len=args.max_len, device=args.device)
+    eng = Engine(model, params, slots=args.slots, max_len=args.max_len, device=args.device, mesh=mesh)
     rng = np.random.default_rng(0)
     t0 = time.time()
     for i in range(args.requests):

@@ -1,10 +1,14 @@
-"""Training launcher: the Trainer on one device.
+"""Training launcher: the Trainer on a device mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
       --reduced --steps 20 --batch 8 --seq 256 [--device cpu] [--ckpt-dir DIR]
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --arch granite-3-8b --production-mesh
 
-The reference's CLI, plus ``--device`` (the card unless named).  No mesh:
-``--production-mesh`` raises until the port has one (ROADMAP.md item 6b).
+The reference's CLI, plus ``--device`` (the card unless named).  It trains
+under ``make_local_mesh()`` over the process group (``mesh.process_group``:
+``torchrun``'s, or one rank of its own); ``--production-mesh`` takes the
+16x16 mesh instead and raises unless the group has 256 ranks.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import argparse
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh, process_group
 from repro_torch.models.model import build_model
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
@@ -33,13 +38,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="use the 16x16 mesh (needs 256 devices)")
+                    help="use the 16x16 mesh (needs 256 ranks)")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh: repro_torch has no device mesh yet (ROADMAP.md queue 1, "
-                                  "item 6b); it trains on one device")
+    with process_group(args.device):
+        mesh = make_production_mesh() if args.production_mesh else make_local_mesh()
+        return _train(args, mesh)
 
+
+def _train(args, mesh) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -49,7 +56,7 @@ def main(argv=None) -> dict:
     tcfg = TrainConfig(microbatches=args.microbatches, compress_grads=args.compress_grads)
     rcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                          batch_override=args.batch, seq_override=args.seq)
-    trainer = Trainer(model, shape, opt, tcfg, rcfg, device=args.device)
+    trainer = Trainer(model, shape, opt, tcfg, rcfg, device=args.device, mesh=mesh)
     out = trainer.run()
     print(f"[train] {args.arch}: {len(out['losses'])} steps, "
           f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "

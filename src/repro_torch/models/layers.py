@@ -8,6 +8,12 @@ Attention has two paths:
     flash-style pass over a static list of (q block, kv block) pairs;
   * :func:`decode_attention` — one query against a KV cache, plain PyTorch.
 
+On a device mesh the tensors are DTensors: the kernel's op and the
+backward's op each carry a sharding rule (batch and heads), so each rank runs
+them on its shard; :func:`attention` hands a shard of query heads the KV heads
+it reads (:func:`_kv_heads_for`), and :func:`write_at` writes each rank's
+rows of a sharded cache in place.
+
 ``mm`` needs no backward of its own: autograd of a bf16 ``einsum`` keeps the
 cotangent in bf16 with fp32 accumulation, which is what the reference's
 explicit ``_mm_vjp`` does.
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.sharding import einsum, is_dtensor, reshape, unsplit
 
 NEG_INF = -1e30  # finite mask bias: keeps every softmax intermediate finite
 
@@ -31,8 +38,9 @@ NEG_INF = -1e30  # finite mask bias: keeps every softmax intermediate finite
 def mm(subscripts: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A product with the weight cast to the activation dtype: bf16 operands,
     fp32 accumulation (the card's and the CPU's bf16 products accumulate in
-    fp32), output in the activation dtype."""
-    return torch.einsum(subscripts, x, w.to(x.dtype))
+    fp32), output in the activation dtype.  On DTensors each rank multiplies
+    its shards (``sharding.einsum``)."""
+    return einsum(subscripts, x, w.to(x.dtype))
 
 
 # --------------------------------------------------------------------------- #
@@ -41,7 +49,10 @@ def mm(subscripts: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    # on a mesh the features gathered first (the products after the norm want
+    # them whole); a mean over split features leaves partial averages, which
+    # DTensor may scatter over the sequence
+    xf = unsplit(x, -1).float()
     var = torch.mean(xf * xf, -1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
 
@@ -80,10 +91,45 @@ def mlp_act(gate: torch.Tensor, up: Optional[torch.Tensor], kind: str) -> torch.
 def write_at(cache: torch.Tensor, lens: torch.Tensor, x: torch.Tensor) -> None:
     """``cache[b, lens[b]] = x[b]`` in place, for every b with lens[b] inside
     the cache; a write past its end is dropped (no index leaves the cache)."""
+    if is_dtensor(cache):
+        _write_at_sharded(cache, lens, x)
+        return
     bidx = torch.arange(cache.shape[0], device=cache.device)
     idx = lens.clamp(max=cache.shape[1] - 1)
     keep = (lens < cache.shape[1]).reshape((-1,) + (1,) * (x.ndim - 1))
     cache[bidx, idx] = torch.where(keep, x.to(cache.dtype), cache[bidx, idx])
+
+
+def _write_at_sharded(cache, lens, x) -> None:
+    """:func:`write_at` on a DTensor cache [B, M, ...]: each rank writes, in
+    its local shard, the rows of the batch it holds at the positions it
+    holds (the cache's sequence dim may be split: the long-context decode)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = cache.device_mesh, cache.placements
+    seq_split = [i for i, p in enumerate(pl) if p == Shard(1)]
+    # x [B, ...] laid out as the cache without its sequence dim; lens as its batch
+    xpl = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2 else (p if p == Shard(0) else Replicate())
+           for p in pl]
+    lpl = [p if p == Shard(0) else Replicate() for p in pl]
+
+    def local(t, placements):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    x_loc, lens_loc = local(x, xpl), local(lens, lpl)
+    loc = cache.to_local()
+    off, size, coord = 0, cache.shape[1], mesh.get_coordinate()
+    for i in seq_split:  # nested in mesh-dim order, as DTensor splits
+        size //= mesh.size(i)
+        off += coord[i] * size
+    pos = lens_loc - off
+    M = loc.shape[1]
+    keep = ((pos >= 0) & (pos < M)).reshape((-1,) + (1,) * (x_loc.ndim - 1))
+    bidx = torch.arange(loc.shape[0], device=loc.device)
+    idx = pos.clamp(0, M - 1)
+    loc[bidx, idx] = torch.where(keep, x_loc.to(loc.dtype), loc[bidx, idx])
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len: torch.Tensor, *,
@@ -94,12 +140,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_le
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
-    qg = q.reshape(B, Hkv, group, D)
-    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k.float()) * scale
+    qg = reshape(q, B, Hkv, group, D)
+    s = einsum("bhgd,bhkd->bhgk", qg.float(), k.float()) * scale
     valid = torch.arange(Skv, device=q.device)[None, None, None, :] < cache_len.reshape(-1, 1, 1, 1)
     p = torch.softmax(s.masked_fill(~valid, float("-inf")), -1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
-    return out.reshape(B, Hq, 1, D).to(q.dtype)
+    out = einsum("bhgk,bhkd->bhgd", p, v.float())
+    return reshape(out, B, Hq, 1, D).to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -232,6 +278,37 @@ def chunked_attention_bwd(q, k, v, out, do, *, causal: bool, scale: float, block
     return dq.to(q.dtype), dk[:, :, :Skv].to(k.dtype), dv[:, :, :Skv].to(v.dtype)
 
 
+@torch.library.custom_op("repro_torch::chunked_attention_backward", mutates_args=())
+def chunked_attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                                  do: torch.Tensor, causal: bool, scale: float, block_q: int,
+                                  block_k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`chunked_attention_bwd` as an op (plain PyTorch on every device),
+    so that a DTensor call runs it on each rank's shard (batch, heads)."""
+    dq, dk, dv = chunked_attention_bwd(q, k, v, out, do, causal=causal, scale=scale, block_q=block_q,
+                                       block_k=block_k)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@chunked_attention_backward_op.register_fake
+def _chunked_attention_backward_fake(q, k, v, out, do, causal, scale, block_q, block_k):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)  # contiguous, as the op's are
+
+
+def _attention_backward_sharding(q, k, v, out, do, causal, scale, block_q, block_k):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [([p] * 3, [p] * 5 + [None] * 4) for p in (Replicate(), Shard(0), Shard(1))]
+
+
+def _register_sharding() -> None:
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.chunked_attention_backward.default)(_attention_backward_sharding)
+
+
+_register_sharding()
+
+
 class _ChunkedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, block_q: int, block_k: int):
@@ -245,7 +322,9 @@ class _ChunkedAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         # a named range, so that a profile can tell this pass's kernels apart
         with torch.profiler.record_function("repro_torch::chunked_attention_backward"):
-            dq, dk, dv = chunked_attention_bwd(q, k, v, out, do, **ctx.cfg)
+            c = ctx.cfg
+            dq, dk, dv = chunked_attention_backward_op(q, k, v, out, do.contiguous(), c["causal"], c["scale"],
+                                                       c["block_q"], c["block_k"])
         return dq, dk, dv, None, None, None, None
 
 
@@ -270,5 +349,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     kernel forward (the reference's other path, a flash-shaped jnp program,
     exists for its XLA dry-run, which has no counterpart here)."""
     del use_flash
-    o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if is_dtensor(q):
+        k, v = _kv_heads_for(q, k), _kv_heads_for(q, v)
+    o = chunked_attention(q, k, v, causal=causal)
     return o.transpose(1, 2)
+
+
+def _kv_heads_for(q, kv):
+    """DTensor K or V [B, Hkv, S, D] for a DTensor q [B, Hq, S, D] whose heads
+    are split over mesh dims where the KV heads are not (kv_heads below the
+    degree, replicated as the specs leave them): each KV head repeated
+    ``lcm(Hkv, n) / Hkv`` times and split as q is, so that each rank's
+    query heads find, locally, the KV heads they read."""
+    from torch.distributed.tensor import Shard
+
+    mesh = q.device_mesh
+    split = [i for i, p in enumerate(q.placements) if p == Shard(1)]
+    n = math.prod(mesh.size(i) for i in split)
+    Hq, Hkv = q.shape[1], kv.shape[1]
+    if all(kv.placements[i] == Shard(1) for i in split):
+        return kv
+    want = math.lcm(Hkv, n)
+    if Hq % want:
+        raise ValueError(f"attention: {Hq} query heads over {n} shards cannot read {Hkv} KV heads locally")
+    f = want // Hkv
+    if f > 1:
+        B, _, S, D = kv.shape
+        kv = reshape(kv[:, :, None].expand(B, Hkv, f, S, D), B, Hkv * f, S, D)
+    pl = list(kv.placements)
+    for i in split:
+        pl[i] = Shard(1)
+    return kv.redistribute(mesh, pl)

@@ -18,19 +18,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 # the full-sequence scans are the kernels' wrappers themselves:
 #   selective_scan(u, dt, A, B, C, D) -> (y [B,S,C], state [B,C,N])       (K5)
 #   ssd_scan(x, dt, A, B, C)          -> (y [B,S,H,P], state [B,H,N,P])   (K4)
 from repro_torch.kernels.ssd import ssd_chunk_scan as ssd_scan  # noqa: F401
 from repro_torch.kernels.sscan import selective_scan  # noqa: F401
+from repro_torch.models.sharding import einsum, pad
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """x: [B, S, C]; w: [K, C] depthwise kernel; causal (left) padding."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = pad(x, (0, 0, K - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(K):
         out = out + xp[:, i:i + S].float() * w[i].float()
@@ -42,14 +42,14 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -
 def conv_window(x: torch.Tensor, K: int) -> torch.Tensor:
     """The last K-1 inputs of x [B, S, C], zero-padded on the left: the conv
     buffer decode starts from (prompts shorter than K-1 included)."""
-    return F.pad(x, (0, 0, K - 1, 0))[:, -(K - 1):]
+    return pad(x, (0, 0, K - 1, 0))[:, -(K - 1):]
 
 
 def conv_step(x_t: torch.Tensor, conv_buf: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
     """One decode step.  x_t: [B, C]; conv_buf: [B, K-1, C] (past inputs).
     Returns (y_t [B, C], new_buf)."""
     window = torch.cat([conv_buf, x_t[:, None, :]], 1)  # [B, K, C]
-    y = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    y = einsum("bkc,kc->bc", window.float(), w.float())
     if b is not None:
         y = y + b.float()
     return y.to(x_t.dtype), window[:, 1:]
@@ -61,7 +61,7 @@ def selective_scan_step(u_t, dt_t, A, B_t, C_t, D, state):
     a = torch.exp(dtf[..., None] * A[None])
     b = (dtf * uf)[..., None] * B_t[:, None, :]
     state = a * state + b
-    y = torch.einsum("bcn,bn->bc", state, C_t.float()) + uf * D
+    y = einsum("bcn,bn->bc", state, C_t.float()) + uf * D
     return y.to(u_t.dtype), state
 
 
@@ -70,5 +70,5 @@ def ssd_step(x_t, dt_t, A, B_t, C_t, state):
     decay = torch.exp(dt_t.float() * A[None])  # [B, H]
     upd = dt_t[..., None, None] * B_t[:, None, :, None] * x_t[:, :, None, :]
     state = decay[..., None, None] * state + upd.float()
-    y = torch.einsum("bn,bhnp->bhp", C_t.float(), state)
+    y = einsum("bn,bhnp->bhp", C_t.float(), state)
     return y.to(x_t.dtype), state

@@ -7,7 +7,9 @@ decode starts from, the layer's conv window and final SSM state: the scan
 kernels return the state anyway, so the prefill needs no second pass.  With
 ``cache=False`` (training) they return the hidden state alone and build no
 conv window; they are differentiable end to end (the scans' autograd formulas
-are in ``kernels/sscan.py`` and ``kernels/ssd.py``).
+are in ``kernels/sscan.py`` and ``kernels/ssd.py``).  Each takes ``mesh``
+(None: one device); on a mesh the input projection's output is constrained as
+the reference's is.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import defs as D
 from repro_torch.models.layers import mm, rms_norm
+from repro_torch.models.sharding import constrain, einsum, reshape
 from repro_torch.models.mamba import (
     causal_conv1d,
     conv_step,
@@ -52,9 +55,10 @@ def mamba1_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _mamba1_inner(cfg: ModelConfig, lp: dict, x: torch.Tensor):
+def _mamba1_inner(cfg: ModelConfig, lp: dict, x: torch.Tensor, mesh=None):
     """x: [B, S, d] normed input -> (xi, z) halves of the input projection."""
-    return mm("bsd,de->bse", x, lp["in_proj"]).chunk(2, -1)
+    xz = constrain(mm("bsd,de->bse", x, lp["in_proj"]), mesh, ("pod", "data"), None, "model")
+    return xz.chunk(2, -1)
 
 
 def _mamba1_bcdt(cfg: ModelConfig, lp: dict, xi: torch.Tensor):
@@ -67,12 +71,12 @@ def _mamba1_bcdt(cfg: ModelConfig, lp: dict, xi: torch.Tensor):
     return dt, Bc, Cc
 
 
-def mamba1_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True):
+def mamba1_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True, mesh=None):
     """Full-sequence Mamba1 block.  h: [B, S, d].
     Returns (h_new, (conv window [B, K-1, di], state [B, di, N])), or h_new
     alone without ``cache``."""
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
-    xi, zg = _mamba1_inner(cfg, lp, x)
+    xi, zg = _mamba1_inner(cfg, lp, x, mesh)
     conv_buf = conv_window(xi, cfg.ssm.d_conv) if cache else None
     xi = causal_conv1d(xi, lp["conv_w"], lp["conv_b"])
     xi = F.silu(xi.float()).to(h.dtype)
@@ -84,10 +88,10 @@ def mamba1_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True
     return (h, (conv_buf, state)) if cache else h
 
 
-def mamba1_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state):
+def mamba1_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state, mesh=None):
     """One-token step.  h: [B, 1, d]; conv_buf [B, K-1, di]; state [B, di, N]."""
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
-    xi, zg = _mamba1_inner(cfg, lp, x)
+    xi, zg = _mamba1_inner(cfg, lp, x, mesh)
     xi_t, conv_buf = conv_step(xi[:, 0], conv_buf, lp["conv_w"], lp["conv_b"])
     xi_t = F.silu(xi_t.float()).to(h.dtype)
     dt, Bc, Cc = _mamba1_bcdt(cfg, lp, xi_t[:, None])
@@ -126,13 +130,17 @@ def _mamba2_split(cfg: ModelConfig, proj: torch.Tensor):
 
 
 def _mamba2_out(cfg: ModelConfig, lp: dict, h, y, xi, zg):
-    """The skip through D, the gated norm and the output projection."""
-    y = y + xi * lp["D"].float().repeat_interleave(cfg.ssm.head_dim)
+    """The skip through D (each head's D on its head_dim channels), the gated
+    norm and the output projection.  The skip is a product over [..., nh, P]
+    heads (``sharding.einsum``): on a mesh, D's gradient is then never a
+    split vector viewed as heads."""
+    heads = reshape(xi, *xi.shape[:-1], -1, cfg.ssm.head_dim).float()
+    y = y + reshape(einsum("bshp,h->bshp", heads, lp["D"].float()), *xi.shape)
     y = rms_norm(y * F.silu(zg.float()).to(h.dtype), lp["norm_g"], cfg.norm_eps)
     return h + mm("bse,ed->bsd", y.to(h.dtype), lp["out_proj"]).to(h.dtype)
 
 
-def mamba2_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True):
+def mamba2_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True, mesh=None):
     """Full-sequence Mamba2 block.  h: [B, S, d].
     Returns (h_new, (conv window [B, K-1, di+2N], state [B, nh, N, P])), or
     h_new alone without ``cache``."""
@@ -140,19 +148,20 @@ def mamba2_layer(cfg: ModelConfig, lp: dict, h: torch.Tensor, cache: bool = True
     di, s = cfg.d_inner, cfg.ssm
     nh, N = di // s.head_dim, s.d_state
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
-    xi, zg, Bc, Cc, dt = _mamba2_split(cfg, mm("bsd,de->bse", x, lp["in_proj"]))
+    proj = constrain(mm("bsd,de->bse", x, lp["in_proj"]), mesh, ("pod", "data"), None, "model")
+    xi, zg, Bc, Cc, dt = _mamba2_split(cfg, proj)
     xbc = torch.cat([xi, Bc, Cc], -1)
     conv_buf = conv_window(xbc, s.d_conv) if cache else None
     xbc = F.silu(causal_conv1d(xbc, lp["conv_w"], lp["conv_b"]).float()).to(h.dtype)
     xi, Bc, Cc = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
     dt = F.softplus(dt.float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
-    y, state = ssd_scan(xi.reshape(B, S, nh, s.head_dim), dt, A, Bc.float(), Cc.float())
-    h = _mamba2_out(cfg, lp, h, y.reshape(B, S, di), xi, zg)
+    y, state = ssd_scan(reshape(xi, B, S, nh, s.head_dim), dt, A, Bc.float(), Cc.float())
+    h = _mamba2_out(cfg, lp, h, reshape(y, B, S, di), xi, zg)
     return (h, (conv_buf, state)) if cache else h
 
 
-def mamba2_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state):
+def mamba2_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state, mesh=None):
     """h: [B, 1, d]; conv_buf [B, K-1, di+2N]; state [B, nh, N, P] fp32."""
     B = h.shape[0]
     di, s = cfg.d_inner, cfg.ssm
@@ -164,8 +173,8 @@ def mamba2_decode(cfg: ModelConfig, lp: dict, h: torch.Tensor, conv_buf, state):
     xi_t, B_t, C_t = xbc_t[..., :di], xbc_t[..., di:di + N], xbc_t[..., di + N:]
     dt_t = F.softplus(dt[:, 0].float() + lp["dt_bias"].float())
     A = -torch.exp(lp["A_log"].float())
-    y, state = ssd_step(xi_t.reshape(B, nh, s.head_dim), dt_t, A, B_t.float(), C_t.float(), state)
-    h = _mamba2_out(cfg, lp, h, y.reshape(B, 1, di), xi_t[:, None], zg)
+    y, state = ssd_step(reshape(xi_t, B, nh, s.head_dim), dt_t, A, B_t.float(), C_t.float(), state)
+    h = _mamba2_out(cfg, lp, h, reshape(y, B, 1, di), xi_t[:, None], zg)
     return h, conv_buf, state
 
 

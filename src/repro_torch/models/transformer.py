@@ -12,20 +12,27 @@ Layer patterns (run by models/model.py as Python loops over the stacks):
 The loss: :func:`xent_loss` on full logits, and :func:`chunked_xent`, which
 never holds more than one sequence chunk's logits.
 
-Against the reference: the MoE block is its single-device branch; the KV
-cache of :func:`self_attn_decode` is written in place.
+Every block takes ``mesh`` (None: one device).  On a mesh the tensors are
+DTensors and the blocks put the reference's ``constrain`` points in as
+redistributions (``models/sharding.py``); the MoE block takes the
+expert-parallel path (``moe.moe_ffn_expert_parallel``) whenever the mesh has
+a ``model`` axis.  The KV cache of :func:`self_attn_decode` is written in
+place.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import defs as D
 from repro_torch.models.layers import apply_rope, attention, decode_attention, mlp_act, mm, rms_norm, write_at
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_ffn_expert_parallel
+from repro_torch.models.sharding import axis_names, constrain, constrain_logical, fsdp_axes_for, reduce_partial, \
+    reshape
 
 P_ = D.ParamDef
 
@@ -120,18 +127,20 @@ def _proj_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return q, k, v
 
 
-def self_attn_block(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.Tensor):
+def self_attn_block(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.Tensor, mesh=None):
     """Full-sequence causal self-attention sublayer.  Returns (out, (k, v))."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = _proj_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, mesh, ("pod", "data"), None, "model", None)
+    k = constrain(k, mesh, ("pod", "data"), None, "model", None)
     o = attention(q, k, v, causal=True)
-    out = mm("bshk,hkd->bsd", o, p["wo"].reshape(cfg.n_heads, cfg.hd, -1))
+    out = mm("bshk,hkd->bsd", o, reshape(p["wo"], cfg.n_heads, cfg.hd, -1))
     return out, (k, v)
 
 
-def self_attn_decode(cfg: ModelConfig, p: dict, h: torch.Tensor, k_cache, v_cache, lens):
+def self_attn_decode(cfg: ModelConfig, p: dict, h: torch.Tensor, k_cache, v_cache, lens, mesh=None):
     """One-token self-attention against a KV cache.  h [B, 1, d]; lens [B],
     each slot's valid length (its new token lands at position lens[b]).  The
     token's k and v are written into the caches ([B, max_len, KV, hd]) in
@@ -146,18 +155,18 @@ def self_attn_decode(cfg: ModelConfig, p: dict, h: torch.Tensor, k_cache, v_cach
     write_at(v_cache, lens, v[:, 0])
     o = decode_attention(q.transpose(1, 2), k_cache.transpose(1, 2).to(q.dtype),
                          v_cache.transpose(1, 2).to(q.dtype), lens + 1)
-    out = mm("bshk,hkd->bsd", o.transpose(1, 2), p["wo"].reshape(cfg.n_heads, cfg.hd, -1))
+    out = mm("bshk,hkd->bsd", o.transpose(1, 2), reshape(p["wo"], cfg.n_heads, cfg.hd, -1))
     return out, k_cache, v_cache
 
 
-def cross_attn_block(cfg: ModelConfig, p: dict, h: torch.Tensor, kv_k, kv_v):
+def cross_attn_block(cfg: ModelConfig, p: dict, h: torch.Tensor, kv_k, kv_v, mesh=None):
     """Cross-attention (not causal) against precomputed vision K/V [B, P, KV, hd]."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     q = mm("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     o = attention(q, kv_k.to(q.dtype), kv_v.to(q.dtype), causal=False)
-    return mm("bshk,hkd->bsd", o, p["wo"].reshape(cfg.n_heads, cfg.hd, -1))
+    return mm("bshk,hkd->bsd", o, reshape(p["wo"], cfg.n_heads, cfg.hd, -1))
 
 
 def vision_kv(cfg: ModelConfig, p: dict, vis: torch.Tensor):
@@ -170,20 +179,27 @@ def vision_kv(cfg: ModelConfig, p: dict, vis: torch.Tensor):
     return k, v
 
 
-def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor, mesh=None) -> torch.Tensor:
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
     g = mm("bsd,df->bsf", x, p["w_gate"])
+    g = constrain(g, mesh, ("pod", "data"), None, "model")
     up = mm("bsd,df->bsf", x, p["w_up"]) if cfg.mlp_type == "swiglu" else None
     return mm("bsf,fd->bsd", mlp_act(g, up, cfg.mlp_type), p["w_down"])
 
 
-def moe_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
-    """The MoE sublayer on one device.  Returns (out, aux_loss, z_loss)."""
+def moe_block(cfg: ModelConfig, p: dict, h: torch.Tensor, mesh=None):
+    """The MoE sublayer: expert-parallel on a mesh with a ``model`` axis, else
+    on one device.  Returns (out, aux_loss, z_loss)."""
     B, S, d = h.shape
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    out = moe_ffn(x.reshape(B * S, d), p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                  top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor, mlp_kind=cfg.mlp_type)
-    return out.y.reshape(B, S, d).to(h.dtype), out.aux_loss, out.z_loss
+    kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor, mlp_kind=cfg.mlp_type)
+    if mesh is not None and "model" in axis_names(mesh):
+        out = moe_ffn_expert_parallel(reshape(x, B * S, d), p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                                      mesh=mesh, fsdp_axes=fsdp_axes_for(cfg), compute_dtype=getattr(torch, cfg.dtype),
+                                      **kw)
+    else:
+        out = moe_ffn(reshape(x, B * S, d), p["router"], p["w_gate"], p["w_up"], p["w_down"], **kw)
+    return reshape(out.y, B, S, d).to(h.dtype), out.aux_loss, out.z_loss
 
 
 # --------------------------------------------------------------------------- #
@@ -195,18 +211,19 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor, dtype: to
     """tokens [B, S], or [B, S, ncb] for audio (the codebooks' embeddings
     summed in the embedding's dtype, c = 0..ncb-1) -> [B, S, d] in ``dtype``."""
     emb = params["embed"]
-    if cfg.audio:
-        out = emb[0][tokens[..., 0]]
+    if cfg.audio:  # on a mesh each codebook's vocab-parallel lookup reduced before the sum
+        out = reduce_partial(F.embedding(tokens[..., 0], emb[0]))
         for c in range(1, cfg.audio.n_codebooks):
-            out = out + emb[c][tokens[..., c]]
+            out = out + reduce_partial(F.embedding(tokens[..., c], emb[c]))
         return out.to(dtype)
-    return emb[0][tokens].to(dtype)
+    return F.embedding(tokens, emb[0]).to(dtype)
 
 
-def lm_logits(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, params: dict, h: torch.Tensor, mesh=None) -> torch.Tensor:
     """[B, S, d] -> [B, S, V] fp32 logits, or [B, S, ncb, V] for audio."""
     hn = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,cdv->bscv", hn, params["lm_head"].to(hn.dtype))
+    logits = mm("bsd,cdv->bscv", hn, params["lm_head"])
+    logits = constrain_logical(logits, mesh, "batch", None, None, "vocab")
     if not cfg.audio:
         logits = logits[:, :, 0, :]
     return logits.float()
@@ -217,7 +234,8 @@ def _xent_terms(logits: torch.Tensor, labels: torch.Tensor, ignore: int):
     labels [...] against logits [..., V]."""
     labels = labels.long()
     lse = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # on a mesh, a vocab-parallel gather's masked partial sum, reduced before any view of it
+    gold = reduce_partial(torch.gather(logits, -1, labels.clamp(min=0)[..., None]))[..., 0]
     mask = (labels != ignore).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
@@ -229,12 +247,12 @@ def xent_loss(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1) -> t
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _xent_chunk(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.Tensor, ignore: int):
-    return _xent_terms(lm_logits(cfg, params, h), labels, ignore)
+def _xent_chunk(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.Tensor, ignore: int, mesh=None):
+    return _xent_terms(lm_logits(cfg, params, h, mesh), labels, ignore)
 
 
 def chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.Tensor, chunk: int = 256,
-                 ignore: int = -1) -> torch.Tensor:
+                 ignore: int = -1, mesh=None) -> torch.Tensor:
     """Cross-entropy without materializing [B, S, (ncb,) V] logits: the head
     and the softmax run a sequence chunk at a time, each chunk checkpointed
     (its logits recomputed in the backward), so peak logits are
@@ -246,6 +264,7 @@ def chunked_xent(cfg: ModelConfig, params: dict, h: torch.Tensor, labels: torch.
         c -= 1
     tot = cnt = torch.zeros((), device=h.device)
     for i in range(0, S, c):
-        t, n = checkpoint(_xent_chunk, cfg, params, h[:, i:i + c], labels[:, i:i + c], ignore, use_reentrant=False)
+        t, n = checkpoint(_xent_chunk, cfg, params, h[:, i:i + c], labels[:, i:i + c], ignore, mesh,
+                          use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)

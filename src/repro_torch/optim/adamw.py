@@ -8,7 +8,9 @@ Against the reference: the update runs in place under ``torch.no_grad()``
 (the counterpart of the reference's donated train state, so one copy of a
 multi-GB state is kept), a whole leaf at a time as the reference does, with
 the float32 moments and the parameter updated in place and each product
-taken in the reference's order.
+taken in the reference's order.  On DTensor leaves (a train state on a mesh)
+every rank updates its shards in place; a Q8 moment's scale is laid out as
+its parameter without the last dim's split.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tu
 
@@ -59,13 +62,17 @@ def q8_quantize(x: torch.Tensor, nonlinear: bool = False) -> Q8:
     shape = tuple(x.shape) or (1,)
     n = shape[-1]
     padded = _pad_to_block(n)
-    xp = F.pad(x.float().reshape(shape), (0, padded - n))
+    xp = x.float().reshape(shape)
+    if padded != n:  # (a DTensor leaf pads only where it must)
+        xp = F.pad(xp, (0, padded - n))
     xb = xp.reshape(shape[:-1] + (padded // BLOCK, BLOCK))
     scale = xb.abs().amax(-1)  # [..., nb] absmax
     norm = xb / torch.clamp(scale[..., None], min=1e-30)  # in [-1, 1]
     mag = norm.abs().sqrt() if nonlinear else norm.abs()
     codes = (torch.sign(norm) * torch.clamp(torch.round(127.0 * mag), 0, 127)).to(torch.int8)
-    codes = codes.reshape(shape[:-1] + (padded,))[..., :n]
+    codes = codes.reshape(shape[:-1] + (padded,))
+    if padded != n:
+        codes = codes[..., :n]
     return Q8(codes=codes.reshape(shape), scale=scale)
 
 
@@ -73,13 +80,16 @@ def q8_dequantize(q: Q8, nonlinear: bool = False) -> torch.Tensor:
     shape = tuple(q.codes.shape) or (1,)
     n = shape[-1]
     padded = _pad_to_block(n)
-    cp = F.pad(q.codes.float().reshape(shape), (0, padded - n))
+    cp = q.codes.float().reshape(shape)
+    if padded != n:
+        cp = F.pad(cp, (0, padded - n))
     cb = cp.reshape(shape[:-1] + (padded // BLOCK, BLOCK))
     mag = cb.abs() / 127.0
     if nonlinear:
         mag = mag * mag
     out = torch.sign(cb) * mag * q.scale[..., None]
-    return out.reshape(shape[:-1] + (padded,))[..., :n].reshape(q.codes.shape)
+    out = out.reshape(shape[:-1] + (padded,))
+    return (out[..., :n] if padded != n else out).reshape(q.codes.shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -119,6 +129,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.float())) for x in tu.leaves(tree)])))
 
 
+def _like(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``src`` in ``dst``'s DTensor placements (the Q8 scale's last dim is
+    replicated where the parameter's is split), else as it is."""
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) and src.placements != dst.placements:
+        return src.redistribute(dst.device_mesh, dst.placements)
+    return src
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step: global-norm clip, bias correction with the float32
@@ -152,7 +170,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         if is_q8(m):
             for dst, val in ((m, mf), (v, vf)):
                 q = q8_quantize(val, nonlinear=True)
-                dst.codes.copy_(q.codes.reshape(dst.codes.shape))  # a scalar's codes come back as [1]
-                dst.scale.copy_(q.scale)
+                dst.codes.copy_(_like(q.codes.reshape(dst.codes.shape), dst.codes))  # a scalar's codes come back as [1]
+                dst.scale.copy_(_like(q.scale, dst.scale))
     state["step"].copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32)}

@@ -4,7 +4,8 @@ Each gradient leaf plus its carried residual is int8-quantized in 256-element
 blocks and dequantized; the quantization error is carried to the next step
 (EF-SGD).  On one device this is the numerics of the compressed data-parallel
 reduction: the reduction itself (the reference's ``compressed_psum``) needs a
-device mesh and comes with ``launch/`` (ROADMAP.md queue 1, item 6).
+device mesh and is the next slice of the port's mesh layer (ROADMAP.md queue
+1, item 6b).
 """
 from __future__ import annotations
 

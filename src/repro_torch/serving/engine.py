@@ -13,7 +13,11 @@ attention never reads a padded position.  The recurrent families (ssm,
 hybrid) fold every prompt position into their state, so they prefill at the
 exact length.  The vlm's vision tower is a stub: every request sees zero
 patch embeddings, as in the reference.  An audio request's prompt is
-``[S, ncb]`` and each step samples one token a codebook.
+``[S, ncb]`` and each step samples one token a codebook.  With ``mesh=`` (a
+``DeviceMesh``) the weights, the cache and every step's tokens are laid out
+on the mesh (``Model.specs``, ``Model.cache_specs``, ``batch_specs``) and
+prefill and decode run there; a prefill's cache is written into each rank's
+shard of its slot.
 
 Sampling is greedy (argmax) or by temperature with Gumbel noise drawn from a
 ``torch.Generator`` seeded from (seed, rid, position): deterministic within
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import batch_spec, distribute, is_dtensor, repair_spec, shard_ranges
 from repro_torch.serving.resilience import (
     CircuitBreaker,
     CircuitOpen,
@@ -84,9 +89,10 @@ def _stream_seed(*parts: int) -> int:
 
 
 class Engine:
-    def __init__(self, model: Model, params: dict, *, slots: int = 4, max_len: int = 512, device=None):
+    def __init__(self, model: Model, params: dict, *, slots: int = 4, max_len: int = 512, device=None, mesh=None):
         self.device = runtime.resolve_device(device)
         self.model = model
+        self.mesh = mesh
         self.slots, self.max_len = slots, max_len
         # prompt bucketing is exact only for causal kv-cache families; the
         # recurrent ones keep exact-length prefill
@@ -94,6 +100,11 @@ class Engine:
         # cast once here, not at every step
         self.params = model.precast(params)
         self.cache = model.init_cache(slots, max_len, device=self.device)
+        if mesh is not None:
+            from repro_torch.launch.specs import distribute_tree
+
+            self.params = distribute_tree(self.params, mesh, model.specs(mesh))
+            self.cache = distribute_tree(self.cache, mesh, model.cache_specs(mesh, slots, max_len))
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.queue: list[Request] = []
         self.finished: list[Request] = []
@@ -111,11 +122,41 @@ class Engine:
     # ------------------------------------------------------- cache plumb --
     def _write_slot(self, slot: int, src_cache: dict):
         """Copy one request's prefill cache (batch 1) into slot ``slot``, in place."""
+        if self.mesh is not None:
+            self._write_slot_sharded(slot, src_cache)
+            return
         for k, dst in self.cache.items():
             if k == "len":
                 dst[slot] = src_cache[k][0]
             else:  # [L, B, ...]
                 dst[:, slot] = src_cache[k][:, 0]
+
+    def _write_slot_sharded(self, slot: int, src_cache: dict):
+        """:meth:`_write_slot` on a cache of DTensors: each rank copies, from
+        the whole prefill cache, the part of slot ``slot`` that its shard holds."""
+        for k, dst in self.cache.items():
+            src = src_cache[k].full_tensor() if is_dtensor(src_cache[k]) else src_cache[k]
+            bdim = 0 if k == "len" else 1
+            ranges = shard_ranges(dst)
+            lo, hi = ranges[bdim]
+            if not lo <= slot < hi:
+                continue
+            at = [slice(a, b) for a, b in ranges]
+            at[bdim] = 0
+            local = [slice(None)] * dst.ndim
+            local[bdim] = slot - lo
+            dst.to_local()[tuple(local)] = src[tuple(at)]
+
+    def _on_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch of tokens laid out over the mesh's batch axes (replicated
+        where they do not divide it)."""
+        if self.mesh is None:
+            return x
+        return distribute(x, self.mesh, repair_spec(batch_spec(self.mesh, x.ndim - 1), tuple(x.shape), self.mesh))
+
+    @staticmethod
+    def _host(x: torch.Tensor) -> np.ndarray:
+        return (x.full_tensor() if is_dtensor(x) else x).cpu().numpy()
 
     # --------------------------------------------------------------- step --
     def step(self) -> bool:
@@ -127,7 +168,7 @@ class Engine:
                 req.t_admit = time.perf_counter()
                 logits, cache1 = self._prefill(np.asarray(req.prompt, np.int64))
                 self._write_slot(slot, cache1)
-                tok = self._sample(req, logits[0].cpu().numpy())
+                tok = self._sample(req, self._host(logits)[0])
                 req.t_first = time.perf_counter()
                 req.generated.append(tok)
                 self._next_tok[slot] = np.reshape(tok, self._next_tok[slot].shape)
@@ -136,9 +177,9 @@ class Engine:
         if not active:
             return False
         # batched decode (inactive slots decode garbage into their own lane)
-        tokens = torch.as_tensor(self._next_tok, device=self.device)
-        logits, self.cache = self.model.decode_step(self.params, tokens, self.cache)
-        logits = logits.cpu().numpy()
+        tokens = self._on_mesh(torch.as_tensor(self._next_tok, device=self.device))
+        logits, self.cache = self.model.decode_step(self.params, tokens, self.cache, mesh=self.mesh)
+        logits = self._host(logits)
         for slot in active:
             req = self.slot_req[slot]
             tok = self._sample(req, logits[slot])
@@ -160,8 +201,10 @@ class Engine:
             sb = min(self.max_len, _bucket_prompt(length))
             if sb > length:
                 prompt = np.pad(prompt, ((0, sb - length),) + ((0, 0),) * (prompt.ndim - 1))
-        tokens = torch.as_tensor(prompt, device=self.device)[None]
-        return self.model.prefill(self.params, tokens, max_len=self.max_len, vision=self._vision, length=length)
+        tokens = self._on_mesh(torch.as_tensor(prompt, device=self.device)[None])
+        vision = self._vision if self._vision is None else self._on_mesh(self._vision)
+        return self.model.prefill(self.params, tokens, max_len=self.max_len, vision=vision, mesh=self.mesh,
+                                  length=length)
 
     def run(self, max_steps: int = 10_000):
         steps = 0

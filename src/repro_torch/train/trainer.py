@@ -4,7 +4,9 @@ straggler monitoring + crash/restart recovery.
 ``Trainer.run`` restores from the last atomic checkpoint (or starts fresh)
 and resumes the data stream at the checkpoint's ``data_step``; after a
 ``SimulatedFailure`` it restarts from the last checkpoint, up to
-``max_restarts`` times.  Failure injection runs inside the timed region, so
+``max_restarts`` times.  With ``mesh=`` (a ``DeviceMesh``) the train state is
+laid out on the mesh (``launch.specs.train_state_specs``) and a checkpoint is
+restored onto those placements.  Failure injection runs inside the timed region, so
 an injected slow step shows in the step's wall time.
 """
 from __future__ import annotations
@@ -19,7 +21,8 @@ from repro_torch.ft import FailureInjector, SimulatedFailure, StragglerMonitor
 from repro_torch.kernels import runtime
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.train_step import TrainConfig, abstract_train_state, init_train_state, make_train_step
+from repro_torch.train.train_step import TrainConfig, abstract_train_state, distribute_train_state, \
+    init_train_state, make_train_step
 
 
 @dataclass
@@ -38,28 +41,39 @@ class Trainer:
     def __init__(self, model: Model, shape, opt_cfg: AdamWConfig, tcfg: TrainConfig = TrainConfig(),
                  rcfg: TrainerConfig = TrainerConfig(), dcfg: DataConfig = DataConfig(),
                  injector: Optional[FailureInjector] = None, log_fn: Callable[[str], None] = print,
-                 device=None):
+                 device=None, mesh=None):
         self.model, self.shape = model, shape
         self.opt_cfg, self.tcfg, self.rcfg, self.dcfg = opt_cfg, tcfg, rcfg, dcfg
         self.injector = injector
         self.log = log_fn
         self.device = runtime.resolve_device(device)
+        self.mesh = mesh
         self.monitor = StragglerMonitor()
         self.ckpt = Checkpointer(rcfg.ckpt_dir, keep=rcfg.ckpt_keep) if rcfg.ckpt_dir else None
-        self.step_fn = make_train_step(model, opt_cfg, tcfg)
+        self.step_fn = make_train_step(model, opt_cfg, tcfg, mesh=mesh)
         self.history: list[dict] = []
 
     # -------------------------------------------------------------- state --
     def fresh_state(self, seed: int = 0) -> dict:
-        """Weights drawn on the trainer's device from ``torch.Generator(device).manual_seed(seed)``."""
-        return init_train_state(self.model, seed, self.opt_cfg, self.tcfg, self.device)
+        """Weights drawn on the trainer's device from ``torch.Generator(device).manual_seed(seed)``
+        (every rank draws the whole state and keeps its shards)."""
+        state = init_train_state(self.model, seed, self.opt_cfg, self.tcfg, self.device)
+        if self.mesh is not None:
+            state = distribute_train_state(state, self.model, self.opt_cfg, self.tcfg, self.mesh)
+        return state
 
     def _restore_or_fresh(self):
         if self.ckpt is not None:
             self.ckpt.wait()  # a save still in flight when a step failed is the one to restore
             if self.ckpt.latest_step() is not None:
                 like = abstract_train_state(self.model, self.opt_cfg, self.tcfg)
-                state, extra = self.ckpt.restore(None, like, device=self.device)
+                shardings = None
+                if self.mesh is not None:
+                    from repro_torch.launch.specs import as_placements, train_state_specs
+
+                    shardings = as_placements(self.mesh, train_state_specs(self.model, self.mesh, self.opt_cfg,
+                                                                            self.tcfg))
+                state, extra = self.ckpt.restore(None, like, device=self.device, shardings=shardings)
                 start = int(extra.get("data_step", int(state["step"])))
                 self.log(f"[trainer] restored checkpoint at step {start}")
                 return state, start

@@ -1,6 +1,7 @@
 """The port's launchers (``repro_torch.launch.train``, ``.serve``) on the CPU:
 each ``main()`` at a reduced config with ``--device cpu``, the reference's
-CLI, ``--production-mesh`` refused until the port has a mesh, and neither
+CLI (each under a one-rank mesh), ``--production-mesh`` refused on a group
+of other than 256 ranks, and neither
 module importing JAX or the reference package."""
 import os
 import pathlib
@@ -27,7 +28,7 @@ def test_train_main_runs_a_few_steps(arch, tmp_path, capsys):
 
 
 def test_train_main_refuses_the_production_mesh():
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(ValueError, match="needs 256 ranks, the process group has 1"):
         launch_train.main(["--arch", "falcon-mamba-7b", "--reduced", "--device", "cpu", "--production-mesh"])
 
 

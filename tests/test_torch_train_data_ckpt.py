@@ -180,8 +180,11 @@ def test_missing_checkpoint_and_missing_leaf_raise(tmp_path):
     ck.wait()
     with pytest.raises(KeyError, match=r"\['v'\]"):
         ck.restore(1, {"v": torch.zeros(3)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ck.restore(1, {"w": torch.zeros(3)}, device="cpu", shardings={"w": None})
+    # shardings: a None leaf restores a plain tensor; a tree that does not fit like raises
+    restored, _ = ck.restore(1, {"w": torch.zeros(3)}, device="cpu", shardings={"w": None})
+    assert torch.equal(restored["w"], torch.zeros(3))
+    with pytest.raises(ValueError, match="shardings has 2 leaves"):
+        ck.restore(1, {"w": torch.zeros(3)}, device="cpu", shardings={"a": None, "b": None})
 
 
 def test_async_write_error_raised_on_wait(tmp_path):
