@@ -177,10 +177,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    run without one (loss, grad norm, updated parameters; logits and tokens)
    with equal K3/K4/K5 launches; the cost counter (``launch.hlo_costs``) on
    granite's mesh step, its counted FLOPs and bytes beside the step's time;
-   then the two dry runs (``python -m repro_torch.launch.dryrun`` of
-   granite-3-8b and llama4-scout-17b-a16e at train_4k on the 16x16 mesh, a
-   fake group of 256 ranks), started on the host right after the build,
-   each exiting 0 with an ``ok`` record, their roofline terms printed;
+   ``compressed_psum`` over the one-rank "data" group, two rounds, equal bit
+   for bit to ``ef_compress_tree`` on granite @2's gradient tree; on a
+   one-rank ("stage",) mesh, ``pipeline_apply`` over granite-3-8b's dense
+   block (full width, 2 stacked bf16 layers, attention through K3 and its
+   plain backward) on 4 microbatches of 1 x 4,096 tokens, forward and
+   backward, equal bit for bit in y and every gradient to the same layers
+   applied microbatch by microbatch, K3's launches equal, both walls
+   printed; on a one-rank ("pop",) mesh, popsim's member-sharded body
+   (``population_chunk_sharded``) at phase 5e's configuration equal bit for
+   bit to the plain path in history and state, K1's launches equal,
+   member-epochs/s of both (in turns), and ``Session.frontier(mesh=)`` at
+   bench_pareto.py's configuration equal to the call without a mesh
+   (history, hypervolume, winners' .dhd text); then the dry runs started on
+   the host right after the build (``python -m repro_torch.launch.dryrun``
+   of granite-3-8b and llama4-scout-17b-a16e at train_4k on the 16x16 mesh,
+   a fake group of 256 ranks, and ``--popsim --multipod both``, the
+   population-DSE step on the 256- and 512-rank meshes), each exiting 0 with
+   ``ok`` records, their roofline terms or FLOPs, bytes and link bytes
+   printed;
 12. the agreement path, with the launch counts set to 0 just before and read
    just after: tests/data/torch_ssm_train_ref.npz (made by
    tools/make_torch_train_ref.py --ssm: falcon-mamba-7b at 2 layers and
@@ -2315,27 +2330,41 @@ def phase_dse_bench(device, keep: dict) -> None:
                                                                   spec=spec)
 
 
-def phase_dse_scale(device, keep: dict) -> None:
+def scale_population(device) -> dict:
     """1,024 members seeded from the 5 library archs on the LM stack [5, 1024],
-    8 epochs at a constant penalty weight; budgets from the seeds as
-    bench_pareto.py's ``_seed_budgets`` takes them (the worst seed's area and power)."""
+    SCALE_EPOCHS epochs at a constant penalty weight; budgets from the seeds as
+    bench_pareto.py's ``_seed_budgets`` takes them (the worst seed's area and
+    power): the stack, spec, members, mixes, budgets and schedule."""
     import numpy as np
-    import torch
 
-    from repro_torch.core import Graph, optimize, popsim
-    from repro_torch.kernels import runtime
+    from repro_torch.core import Graph, popsim
     from repro_torch.workloads import lm_cell
 
     seeds = ("base", "edge", "mobile", "datacenter", "hbm_class")
     gs = Graph.stack([lm_cell(a, s, device=device).pad_to(1024) for a, s in LM])
-    P = SCALE_P
-    (tech, arch), spec, _ = popsim.seed_population(P, seeds, key=0, device=device)
-    w = popsim.sample_objective_mixes(P, device=device)
+    (tech, arch), spec, _ = popsim.seed_population(SCALE_P, seeds, key=0, device=device)
+    w = popsim.sample_objective_mixes(SCALE_P, device=device)
     _, area, power = popsim.population_log_metrics(tech.map(lambda x: x[:len(seeds)]),
                                                    arch.map(lambda x: x[:len(seeds)]), gs, spec)
     area_b, power_b = float(area.max()), float(power.max())
-    mixes = (w, np.full(P, area_b), np.full(P, power_b))
-    sched = np.full(SCALE_EPOCHS, SCALE_PENALTY, np.float32)
+    return dict(gs=gs, spec=spec, tech=tech, arch=arch, w=w, area_b=area_b, power_b=power_b,
+                mixes=(w, np.full(SCALE_P, area_b), np.full(SCALE_P, power_b)),
+                sched=np.full(SCALE_EPOCHS, SCALE_PENALTY, np.float32))
+
+
+def phase_dse_scale(device, keep: dict) -> None:
+    """Phase 5e: :func:`scale_population`'s chunk, its memory and K1's
+    launches, member 0 against sequential optimize."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import optimize, popsim
+    from repro_torch.kernels import runtime
+
+    inp = scale_population(device)
+    gs, spec, tech, arch, w, mixes, sched = (inp[k] for k in ("gs", "spec", "tech", "arch", "w", "mixes", "sched"))
+    area_b, power_b = inp["area_b"], inp["power_b"]
+    P = SCALE_P
     start = popsim.init_population_state(tech, arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3012,9 +3041,14 @@ MESH_TRAIN = (("granite-3-8b", 2), ("falcon-mamba-7b", 16))  # model, depth (gra
 MESH_SERVE = (("granite-3-8b", 2), ("zamba2-1.2b", None))  # None: full depth
 MESH_TOKENS = 4096  # 1 x 4,096 tokens a train step and a prompt
 MESH_DECODE_STEPS = 4
-MESH_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
-# the dry runs, on the host, as a user runs them: full size on the 16x16 mesh (a fake group of 256 ranks)
+MESH_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan", "mapper_carries",
+                "mapper_carries_backward")
+# the pipeline: granite-3-8b's dense block at full width, 2 stacked layers, 4 microbatches of 1 x 4,096 tokens
+PIPE_LAYERS, PIPE_MICROBATCHES = 2, 4
+# the dry runs, on the host, as a user runs them: full size on the 16x16 mesh (a fake group of 256 ranks), and
+# the population-DSE step on both production meshes
 DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("llama4-scout-17b-a16e", "train_4k"))
+DRYRUN_POPSIM = ("16x16", "2x16x16")
 DRYRUN_TIMEOUT = 900
 
 
@@ -3027,10 +3061,12 @@ def start_dryruns() -> dict:
     out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     procs = {}
-    for arch, shape in DRYRUN_CELLS:
+    runs = {(arch, shape): ["--arch", arch, "--shape", shape] for arch, shape in DRYRUN_CELLS}
+    runs[("popsim", "both")] = ["--popsim", "--multipod", "both"]
+    for (arch, shape), args in runs.items():
         log = open(os.path.join(out, f"{arch}__{shape}.log"), "w")
         procs[(arch, shape)] = (subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", out],
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
             stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env), log)
     return {"out": out, "procs": procs, "t0": time.perf_counter()}
 
@@ -3053,6 +3089,17 @@ def collect_dryruns(runs: dict) -> dict:
             log.close()
             text = pathlib.Path(log.name).read_text()
             check(rc == 0, f"dryrun {arch} x {shape}: exit {rc}\n{text[-3000:]}")
+            if arch == "popsim":
+                for mesh in DRYRUN_POPSIM:
+                    rec = json.loads(pathlib.Path(runs["out"], f"popsim__{mesh}.json").read_text())
+                    check(rec.get("ok") is True and rec["chips"] == (512 if mesh == "2x16x16" else 256),
+                          f"dryrun --popsim [{mesh}]: {rec}")
+                    c = rec["collectives"]
+                    print(f"  dryrun --popsim [{mesh}, {rec['chips']} chips]: {rec['arch']} {rec['shape']}: per rank "
+                          f"{rec['flops_per_device']:.6g} FLOPs, {rec['bytes_per_device']:.6g} bytes, collectives "
+                          f"{c['total_bytes']} link bytes ({c['counts']}); run {rec['compile_s']} s")
+                    recs[("popsim", mesh)] = rec
+                continue
             rec = json.loads(pathlib.Path(runs["out"], f"{arch}__{shape}__16x16.json").read_text())
             check(rec.get("ok") is True, f"dryrun {arch} x {shape}: {rec.get('error')}")
             r = rec["roofline"]
@@ -3240,17 +3287,223 @@ def _mesh_costs(device, mesh) -> None:
     torch.cuda.empty_cache()
 
 
+def _k1() -> dict:
+    from repro_torch.kernels import runtime
+
+    return {k: runtime.LAUNCHES[k] for k in ("mapper_carries", "mapper_carries_backward")}
+
+
+def _mesh_population(device, mesh) -> dict:
+    """popsim's member-sharded body (``population_chunk_sharded``) on the
+    one-rank ("pop",) mesh against the plain path at phase 5e's
+    configuration, in turns (plain, sharded, sharded, plain): the history and
+    every state leaf equal bit for bit, K1's launches equal; member-epochs/s
+    of both.  Then ``Session.frontier(mesh=)`` at bench_pareto.py's
+    configuration against the same call without a mesh.  Returns the
+    sharded runs' K1 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Session, Workload
+    from repro_torch.core import popsim
+
+    inp = scale_population(device)
+    start = popsim.init_population_state(inp["tech"], inp["arch"])
+    args = (start, inp["mixes"], inp["gs"], SCALE_LR, inp["sched"])
+    runs = {"plain": lambda: popsim.population_chunk(*args, spec=inp["spec"]),
+            "sharded": lambda: popsim.population_chunk_sharded(*args, spec=inp["spec"], mesh=mesh)}
+    got, walls, k1 = {}, {"plain": [], "sharded": []}, {}
+    runs["plain"]()  # warm: the first call of a process builds the kernels' libraries and the spec's arrays
+    for run in ("plain", "sharded", "sharded", "plain"):
+        torch.cuda.synchronize()
+        before = _k1()
+        t0 = time.perf_counter()
+        state, m = runs[run]()
+        walls[run].append(time.perf_counter() - t0)  # each ends in its one host copy of the history
+        k1[run] = {k: n - before[k] for k, n in _k1().items()}
+        leaves = [_full(x) for x in popsim._state_leaves(state)]
+        if run in got:
+            check(np.array_equal(m, got[run][0]) and all(torch.equal(a, b) for a, b in zip(leaves, got[run][1])),
+                  f"mesh population {run}: a second run from the same state differs")
+        got[run] = (m, leaves)
+    (m0, l0), (m1, l1) = got["plain"], got["sharded"]
+    check(np.array_equal(m0, m1), "mesh population: the sharded body's history differs from the plain path's")
+    bad = [i for i, (a, b) in enumerate(zip(l0, l1)) if not torch.equal(a, b)]
+    check(not bad, f"mesh population: {len(bad)} of {len(l0)} state leaves differ")
+    check(k1["plain"] == k1["sharded"] and k1["plain"]["mapper_carries"] == SCALE_EPOCHS,
+          f"mesh population: K1 launches {k1}")
+    rate = {r: SCALE_P * SCALE_EPOCHS / statistics.mean(w) for r, w in walls.items()}
+    print(f"  mesh population P={SCALE_P} on the LM stack [5,1024], {SCALE_EPOCHS} epochs on the ('pop',) mesh: "
+          f"history [{m1.shape[0]}, {m1.shape[1]}, 5] and {len(l1)} state leaves equal bit for bit to the plain "
+          f"path; K1 launches {k1['sharded']} both; member-epochs/s plain {rate['plain']:.1f}, sharded "
+          f"{rate['sharded']:.1f} (host clock, mean of 2 in turns: plain {[round(w, 4) for w in walls['plain']]} s, "
+          f"sharded {[round(w, 4) for w in walls['sharded']]} s)")
+
+    ref = dict(np.load(PARETO_FIXTURE))
+    kw = pareto_kwargs(ref)
+    sess = Session("base", device=device)
+    w = Workload([str(n) for n in ref["workloads"]], device=device)
+    before = _k1()
+    t0 = time.perf_counter()
+    meshed = sess.frontier(w, mesh=mesh, **kw)
+    wall = time.perf_counter() - t0
+    k1_frontier = {k: n - before[k] for k, n in _k1().items()}
+    plain = sess.frontier(w, **kw)
+    check(np.array_equal(meshed.raw.history, plain.raw.history)
+          and np.array_equal(meshed.raw.log_metrics, plain.raw.log_metrics)
+          and meshed.hypervolume == plain.hypervolume
+          and [p.dhd for p in meshed.front] == [p.dhd for p in plain.front],
+          "mesh frontier: history, log metrics, hypervolume or winners differ from the run without a mesh")
+    print(f"  mesh frontier, bench configuration (P={int(ref['population'])}, {int(ref['steps'])} steps) on the "
+          f"('pop',) mesh: front of {len(meshed.front)}, hypervolume {meshed.hypervolume:.6g}, winners' .dhd text "
+          f"equal to the call without a mesh; wall {wall:.3f} s")
+    return {k: k1["sharded"][k] + k1_frontier[k] for k in k1_frontier}
+
+
+def _mesh_compressed_psum(device, mesh) -> None:
+    """``compressed_psum`` over the one-rank group of the (1, 1) mesh's
+    "data" dim, two rounds (the second carrying the first's residual), each
+    equal bit for bit to ``ef_compress_tree`` on granite-3-8b @2's gradient
+    tree (the mesh train step's loss and gradients, 1 x MESH_TOKENS)."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import batch_to, make_batch
+    from repro_torch.launch.specs import batch_specs, distribute_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.model import on_mesh
+    from repro_torch.optim import AdamWConfig, compressed_psum, ef_compress_tree, init_error_buffer
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.train_step import distribute_train_state
+
+    name, layers = MESH_TRAIN[0]
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    model = build_model(cfg)
+    opt, tcfg = AdamWConfig(), TrainConfig()
+    params = distribute_train_state(init_train_state(model, 0, opt, tcfg, device), model, opt, tcfg, mesh)["params"]
+    batch = batch_to(make_batch(cfg, SHAPES["train_4k"], 0, batch_override=1, seq_override=MESH_TOKENS), device)
+    live = tu.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad(), on_mesh(mesh):
+        loss, _ = model.loss(live, distribute_tree(batch, mesh, batch_specs(cfg, mesh, batch)), mesh=mesh)
+        grads = torch.autograd.grad(loss, tu.leaves(live))
+    grads = tu.unflatten_like(params, [_full(g) for g in grads])
+    del live, params
+    err = err_ref = init_error_buffer(grads)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, err = compressed_psum(grads, "data", err, mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want, err_ref = ef_compress_tree(grads, err_ref)
+        bad = [p for (p, a), b, e, f in zip(tu.leaves_with_path(mean), tu.leaves(want), tu.leaves(err),
+                                            tu.leaves(err_ref)) if not (torch.equal(a, b) and torch.equal(e, f))]
+        check(not bad, f"compressed_psum: {len(bad)} leaves differ from ef_compress_tree ({bad[:3]})")
+    n = sum(g.numel() for g in tu.leaves(grads))
+    print(f"  compressed_psum over the one-rank 'data' group: {name} @{layers} gradient tree ({len(tu.leaves(grads))} "
+          f"leaves, {n} elements, loss {float(_full(loss.detach())):.6f}), 2 rounds, mean and residual equal bit for "
+          f"bit to ef_compress_tree; wall {[round(w, 4) for w in walls]} s (host clock after a sync; the first "
+          f"round's all-reduce starts the group's NCCL communicator)")
+    del grads, mean, err, want, err_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_pipeline(device, mesh) -> dict:
+    """``pipeline_apply`` on the one-rank ("stage",) mesh against the same
+    layers applied microbatch by microbatch in a plain loop: granite-3-8b's
+    dense block (``self_attn_block`` and ``mlp_block`` with their residuals,
+    positions fixed; attention through K3 and its plain backward) at full
+    width, PIPE_LAYERS stacked bf16 layers, PIPE_MICROBATCHES microbatches of
+    1 x MESH_TOKENS bf16 tokens, forward and ``backward()``: y and every
+    gradient equal bit for bit, K3's launches equal.  Returns the pipeline's
+    launches."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import cast_layer_params
+    from repro_torch.train import pipeline_apply
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=PIPE_LAYERS)
+    layers = cast_layer_params(cfg, build_model(cfg).init(0, device)["layers"])
+    positions = torch.arange(MESH_TOKENS, device=device).expand(1, MESH_TOKENS)
+
+    def layer_fn(lp, h):
+        a, _ = T.self_attn_block(cfg, lp, h, positions)
+        h = h + a
+        return h + T.mlp_block(cfg, lp, h)
+
+    g = torch.Generator(device=device).manual_seed(K3_SEED)
+    x0 = torch.randn(PIPE_MICROBATCHES, MESH_TOKENS, cfg.d_model, generator=g, device=device).to(torch.bfloat16)
+
+    def plain(W, x):
+        outs = []
+        for h in x.reshape(PIPE_MICROBATCHES, 1, MESH_TOKENS, cfg.d_model):
+            for i in range(PIPE_LAYERS):
+                h = layer_fn({k: v[i] for k, v in W.items()}, h)
+            outs.append(h)
+        return torch.stack(outs).reshape(x.shape)
+
+    runs = {"plain": plain,
+            "pipeline": lambda W, x: pipeline_apply(mesh, layer_fn, W, x, n_microbatches=PIPE_MICROBATCHES)}
+    got, counts, walls = {}, {}, {"plain": [], "pipeline": []}
+    for run in ("plain", "pipeline", "pipeline", "plain"):
+        W = {k: v.detach().clone().requires_grad_(True) for k, v in layers.items()}
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        before = runtime.LAUNCHES["flash_attention_sm90"]
+        t0 = time.perf_counter()
+        y = runs[run](W, x)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        walls[run].append(time.perf_counter() - t0)
+        counts[run] = runtime.LAUNCHES["flash_attention_sm90"] - before
+        out = (y.detach(), x.grad, {k: v.grad for k, v in W.items()})
+        if run in got:
+            check(torch.equal(out[0], got[run][0]) and torch.equal(out[1], got[run][1])
+                  and all(torch.equal(out[2][k], got[run][2][k]) for k in out[2]),
+                  f"pipeline {run}: a second run differs from the first")
+        else:
+            got[run] = out
+        del W, x, y, out
+    (y0, gx0, gw0), (y1, gx1, gw1) = got["plain"], got["pipeline"]
+    check(torch.equal(y0, y1), "pipeline: y differs from the microbatch loop's")
+    check(torch.equal(gx0, gx1), "pipeline: x's gradient differs from the microbatch loop's")
+    bad = [k for k in gw0 if not torch.equal(gw0[k], gw1[k])]
+    check(not bad, f"pipeline: the gradients of {bad} differ from the microbatch loop's")
+    want = PIPE_MICROBATCHES * PIPE_LAYERS
+    check(counts["plain"] == counts["pipeline"] == want, f"pipeline: K3 launches {counts}, want {want} each")
+    print(f"  pipeline granite-3-8b dense block @{PIPE_LAYERS} layers on the ('stage',) mesh, {PIPE_MICROBATCHES} "
+          f"microbatches of 1 x {MESH_TOKENS} bf16, forward and backward: y, x's gradient and {len(gw1)} stacked "
+          f"parameters' gradients equal bit for bit to the microbatch loop; K3 launches {counts['pipeline']} each "
+          f"run of both; wall in turns (plain, pipeline, pipeline, plain; host clock after a sync) plain "
+          f"{[round(w, 4) for w in walls['plain']]} s, pipeline {[round(w, 4) for w in walls['pipeline']]} s")
+    del got, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_sm90": counts["pipeline"]}
+
+
 def phase_mesh(device, dryruns: dict) -> dict:
     """The mesh path: a one-rank NCCL process group (a FileStore) and
     ``make_local_mesh()``, a (1, 1) DeviceMesh on the card; the training and
     serving runs of MESH_TRAIN and MESH_SERVE each equal bit for bit to the
     same run without a mesh, under deterministic algorithms; the cost
-    counter on granite's step; then the dry runs started at the top of the
+    counter on granite's step; ``compressed_psum``; GPipe on a one-rank
+    ("stage",) mesh; popsim's member-sharded body and ``Session.frontier``
+    on a one-rank ("pop",) mesh; then the dry runs started at the top of the
     run, collected.  Returns the mesh runs' launches."""
     import tempfile
 
     import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -3269,6 +3522,14 @@ def phase_mesh(device, dryruns: dict) -> dict:
                 for k, n in _mesh_serve(device, mesh, name, layers).items():
                     counts[k] += n
             _mesh_costs(device, mesh)
+            _mesh_compressed_psum(device, mesh)
+            one = torch.arange(1)
+            for k, n in _mesh_pipeline(device, DeviceMesh("cuda", one, mesh_dim_names=("stage",))).items():
+                counts[k] += n
+            # the population runs as the DSE and session paths do, where it repeats bit for bit
+            torch.use_deterministic_algorithms(False)
+            for k, n in _mesh_population(device, DeviceMesh("cuda", one, mesh_dim_names=("pop",))).items():
+                counts[k] += n
         finally:
             torch.use_deterministic_algorithms(False)
             dist.destroy_process_group()

@@ -1120,8 +1120,10 @@ class Session:
         Seeds descend from the named ``.dhd`` library designs (the session
         architecture does not constrain the population).  ``engine_kw``
         forwards ``repro_torch.core.popsim.pareto_dse``'s knobs
-        (``penalty_weight``, ``sigma``, ``key``, ``hv_box``, and the random
-        draws ``noise``, ``mix_draws`` and ``hv_samples``, ...).
+        (``penalty_weight``, ``sigma``, ``key``, ``hv_box``, the random
+        draws ``noise``, ``mix_draws`` and ``hv_samples``, and ``mesh``, a
+        ``DeviceMesh`` with a ``pop`` dim over which the members are split,
+        every rank returning the same front, ...).
         """
         w = self._workload(workload)
         mcfg = engine_kw.pop("mcfg", self.mcfg)

@@ -17,7 +17,10 @@ looks like and which design wins under a budget.
     history per chunk: the per-member DOpt step (dsim.mixed_log_objective
     value and gradient + log-space Adam + Alg.-6 bounds clamping) over an
     explicit member axis, with the per-epoch penalty weight supplied as a
-    tensor so constraint schedules don't force chunk boundaries;
+    tensor so constraint schedules don't force chunk boundaries.  With a
+    ``DeviceMesh``, the members are split over one of its dims
+    (:func:`population_chunk_sharded`): trajectories are independent, so the
+    only collective is the gather of the history;
   * :func:`pareto_dse` — the driver: seed, descend, extract the
     non-dominated front (core.pareto), and serialize every winner back to
     diffable ``.dhd`` text via dhdl.serialize_arch.
@@ -35,27 +38,32 @@ unit samples are explicit arguments; absent, they are drawn on the host by
 one population on the CPU and on the card.
 
 Legacy single-objective helpers (init_population / population_objective /
-make_dse_step) are kept beside it.
+make_dse_step / shard_population / dse_in_shardings) are kept beside it: they
+are the DSE step the production-mesh dry run runs (``launch.dryrun --popsim``),
+members over ("pod", "data") and workloads over "model".
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections.abc import Mapping
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.dhdl import load_arch, serialize_arch
 from repro_torch.core.dopt import AdamState, adam_update, from_log, to_log
 from repro_torch.core.dsim import (
     PARETO_METRICS,
     mixed_log_objective,
+    objective_value,
     simulate_stacked,
     stacked_log_metrics,
     stacked_log_objective,
 )
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import DATA_FIELDS, Graph
 from repro_torch.core.mapper import MapperCfg
 from repro_torch.core.params import ArchParams, ArchSpec, TechParams, clamp_params, per_member, stack_trees
 from repro_torch.core.pareto import hv_ref_point, hypervolume, non_dominated_mask, unit_samples
@@ -281,6 +289,23 @@ def _unflatten_state(like, leaves: list[torch.Tensor]):
     return (t, a, ts, as_)
 
 
+def _epochs(state, mixes, gstack: Graph, lr, pw_schedule, spec, mcfg, opt_over):
+    """Every epoch of ``pw_schedule`` on the state's device, member for member:
+    (state', history [n, P, 5] on the device)."""
+    dev = state[0].leaves()[0].device
+    f32 = lambda x: _tensor(x, dev)  # noqa: E731
+    mixes = tuple(f32(x) for x in mixes)
+    lr, pw_schedule = f32(lr), f32(pw_schedule).reshape(-1)
+    gstack = gstack.to(dev)
+    log_bounds = (tuple(to_log(b) for b in TechParams.bounds(dev)),
+                  tuple(to_log(b) for b in ArchParams.bounds(dev)))
+    rows = []
+    for i in range(pw_schedule.shape[0]):
+        state, row = _population_step(state, mixes, gstack, lr, pw_schedule[i], spec, mcfg, opt_over, log_bounds)
+        rows.append(row)
+    return state, (torch.stack(rows) if rows else torch.zeros((0, _members(state[0]), 5), device=dev))
+
+
 def population_chunk(
     state,
     mixes,
@@ -291,6 +316,8 @@ def population_chunk(
     spec: ArchSpec = ArchSpec(),
     mcfg: MapperCfg = MapperCfg(),
     opt_over: str = "both",
+    mesh=None,
+    axis: str = "pop",
 ):
     """Advance ``P`` independent Adam trajectories ``len(pw_schedule)``
     epochs back to back on the state's device.
@@ -299,7 +326,11 @@ def population_chunk(
       state is returned);
     * ``mixes``: ``(weights [P,4], area_budget [P], power_budget [P])``;
     * ``pw_schedule`` [n]: per-epoch budget-penalty weight (the constraint
-      schedule), read on the device.
+      schedule), read on the device;
+    * ``mesh``/``axis``: split the members over dim ``axis`` of a
+      ``DeviceMesh`` (:func:`population_chunk_sharded`, whose docstring gives
+      the layout it takes and returns); the dim's size must divide P.
+      ``mesh=None``, or a mesh of one rank, runs the plain path.
 
     Returns ``(state', metrics)``: ``metrics`` is the [n, P, 5] float32
     numpy history, per-epoch rows ``[scalarized value, log time, log energy,
@@ -312,20 +343,66 @@ def population_chunk(
             f"opt_over={opt_over!r} not supported by the population engine "
             "(use 'tech', 'arch' or 'both'; DOpt2 'both+types' is optimize()-only)"
         )
-    dev = state[0].leaves()[0].device
-    f32 = lambda x: _tensor(x, dev)  # noqa: E731
-    mixes = tuple(f32(x) for x in mixes)
-    lr, pw_schedule = f32(lr), f32(pw_schedule).reshape(-1)
-    gstack = gstack.to(dev)
-    log_bounds = (tuple(to_log(b) for b in TechParams.bounds(dev)),
-                  tuple(to_log(b) for b in ArchParams.bounds(dev)))
-    rows = []
-    for i in range(pw_schedule.shape[0]):
-        state, row = _population_step(state, mixes, gstack, lr, pw_schedule[i], spec, mcfg, opt_over, log_bounds)
-        rows.append(row)
-    p = _members(state[0])
-    metrics = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, p, 5), np.float32)
-    return state, metrics
+    if mesh is not None and mesh.size() > 1:
+        names = tuple(mesh.mesh_dim_names)
+        if axis not in names:
+            raise ValueError(f"mesh has axes {names}, no {axis!r} axis")
+        p, shards = _members(state[0]), mesh.size(names.index(axis))
+        if p % shards != 0:
+            raise ValueError(
+                f"mesh axis {axis!r}={shards} must divide the population (got P={p}) — "
+                f"pad the population to a multiple of {shards}"
+            )
+        return population_chunk_sharded(state, mixes, gstack, lr, pw_schedule, spec=spec, mcfg=mcfg,
+                                        opt_over=opt_over, mesh=mesh, axis=axis)
+    state, rows = _epochs(state, mixes, gstack, lr, pw_schedule, spec, mcfg, opt_over)
+    return state, rows.cpu().numpy()
+
+
+def population_chunk_sharded(
+    state,
+    mixes,
+    gstack: Graph,
+    lr,
+    pw_schedule,
+    *,
+    spec: ArchSpec = ArchSpec(),
+    mcfg: MapperCfg = MapperCfg(),
+    opt_over: str = "both",
+    mesh,
+    axis: str = "pop",
+):
+    """:func:`population_chunk` with the members split over dim ``axis`` of
+    ``mesh`` (any ``DeviceMesh`` that has it, one rank included): under a
+    ``local_map``, each rank advances its contiguous block of members
+    through the same epochs, with ``gstack``, ``lr`` and the schedule whole.
+    Members are independent, so the one collective is the gather of the
+    [n, P, 5] history, which every rank returns whole.
+
+    Layout.  A leaf of ``state`` or ``mixes`` is either a plain tensor (or
+    array), whole on every rank, of which each rank keeps its block, or a
+    DTensor split so.  The returned state's leaves are DTensors,
+    ``Shard(0)`` on ``axis`` and ``Replicate`` on every other mesh dim (and
+    on ``axis`` when it has one rank), which the next call takes as they are.
+    """
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.sharding import Spec, distribute, to_placements
+
+    leaves = [distribute(x, mesh, Spec(axis)) for x in _state_leaves(state)]
+    dev = leaves[0].device
+    mixes = [distribute(_tensor(x, dev), mesh, Spec(axis)) for x in mixes]
+    members, history = to_placements(Spec(axis), mesh), to_placements(Spec(None, axis), mesh)
+    n = len(leaves)
+
+    def body(*flat):
+        st, rows = _epochs(_unflatten_state(state, list(flat[:n])), flat[n:], gstack, lr, pw_schedule, spec, mcfg,
+                           opt_over)
+        return (*_state_leaves(st), rows)
+
+    out = local_map(body, out_placements=(members,) * n + (history,), in_placements=(members,) * (n + 3),
+                    device_mesh=mesh)(*leaves, *mixes)
+    return _unflatten_state(state, list(out[:n])), out[n].full_tensor().cpu().numpy()
 
 
 def population_log_metrics(
@@ -387,6 +464,7 @@ def pareto_dse(
     chunk: int | None = None,
     spec_override: ArchSpec | None = None,
     mcfg: MapperCfg = MapperCfg(),
+    mesh=None,
     key: int = 0,
     hv_box: tuple | None = None,
     noise: tuple | None = None,
@@ -420,6 +498,12 @@ def pareto_dse(
     ``hv_samples`` (the hypervolume's [n, len(metrics)] unit samples).  Each
     one not given is drawn from its own child of ``numpy.random.SeedSequence(key)``.
 
+    ``mesh`` (a ``DeviceMesh`` with a ``pop`` dim) splits the members of
+    every chunk over that dim (:func:`population_chunk`).  The draws are made
+    whole on every rank, each rank descends its own members, and the final
+    members are gathered before the front, the hypervolume and the winners'
+    ``.dhd`` text, so every rank returns the same result.
+
     ``graphs`` may also be an already ``Graph.stack()``-ed workload set
     (leading [W] axis).  Everything runs on ``device`` (the card unless the
     caller names another).
@@ -449,13 +533,12 @@ def pareto_dse(
     while done < steps:
         n = min(step_per_chunk, steps - done)
         state, m = population_chunk(state, mixes, gstack, lr, pw_schedule[done:done + n],
-                                    spec=spec, mcfg=mcfg, opt_over=opt_over)
+                                    spec=spec, mcfg=mcfg, opt_over=opt_over, mesh=mesh)
         rows.append(m)
         done += n
     history = np.concatenate(rows, axis=0) if rows else np.zeros((0, population, 5), np.float32)
 
-    tech = from_log(state[0])
-    arch = from_log(state[1])
+    tech, arch = (from_log(z.map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x)) for z in state[:2])
     logm, area, power = (x.cpu().numpy() for x in population_log_metrics(tech, arch, gstack, spec, mcfg))
 
     tol = 1.0 + budget_tol
@@ -559,22 +642,116 @@ def population_objective(pop, graphs: Graph, objective: str = "edp", spec: ArchS
     return val
 
 
-def make_dse_step(objective: str = "edp", lr: float = 0.05, spec: ArchSpec = ArchSpec()):
-    """One population gradient-descent epoch: grads in log-space, SGD update."""
+def _mesh_population_objective(pop, graphs: Graph, mesh, objective: str = "edp", spec: ArchSpec = ArchSpec(),
+                               mcfg: MapperCfg = MapperCfg()):
+    """:func:`population_objective` of DTensor members against DTensor
+    workloads (as :func:`lay_out_dse_inputs` places them) on ``mesh``: a
+    ``local_map`` body simulates each rank's members against its workloads
+    and takes their mean; where the workloads are split over mesh dims, the
+    members' objective is the mean of those local means, one all-reduce over
+    those dims, and each member's gradient leaves the body as a partial sum
+    over them (reduced once, where the caller redistributes it).  Returns
+    the [P] objectives laid out as the members are."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    tech, arch = pop
+    members = tuple(tech.leaves()[0].placements)
+    gleaves = [getattr(graphs, f) for f in DATA_FIELDS]
+    split = [d for d, p in enumerate(gleaves[0].placements) if p.is_shard()]
+    out = tuple(Partial() if d in split else p for d, p in enumerate(members))
+    nt, na = len(tech.leaves()), len(arch.leaves())
+    n = math.prod(mesh.size(d) for d in split)
+
+    def body(*flat):
+        it = iter(flat)
+        t, a = tech.map(lambda _: next(it)), arch.map(lambda _: next(it))
+        g = Graph(**{f: next(it) for f in DATA_FIELDS})
+        perfs = simulate_stacked(_against_workloads(t), _against_workloads(a), g, spec, mcfg)
+        mean = torch.mean(torch.log(objective_value(perfs, objective)), -1)
+        return mean if n == 1 else mean / n  # this rank's share of the mean of the n local means
+
+    workloads = tuple(tuple(x.placements) for x in gleaves)
+    fn = local_map(body, out_placements=(out,), in_placements=(members,) * (nt + na) + workloads,
+                   in_grad_placements=(out,) * (nt + na) + workloads, device_mesh=mesh)
+    val = fn(*tech.leaves(), *arch.leaves(), *gleaves)
+    return val if n == 1 else val.redistribute(mesh, members)
+
+
+def make_dse_step(objective: str = "edp", lr: float = 0.05, spec: ArchSpec = ArchSpec(), mesh=None):
+    """One population gradient-descent epoch: grads in log-space, SGD update.
+
+    With ``mesh`` the step takes its inputs laid out by
+    :func:`dse_in_shardings` (plain tensors are laid out first) and computes
+    the objective with :func:`_mesh_population_objective`: the workload mean
+    is a collective over "model", forward and backward."""
+
+    def objective_of(p, graphs):
+        if mesh is None:
+            return population_objective(p, graphs, objective, spec)
+        return _mesh_population_objective(p, graphs, mesh, objective, spec)
 
     def dse_step(pop, graphs: Graph):
+        if mesh is not None:
+            pop, graphs = lay_out_dse_inputs(mesh, pop, graphs)
         pop_z = tuple(to_log(t).map(lambda x: x.detach().requires_grad_(True)) for t in pop)
         with torch.enable_grad():
-            loss = torch.sum(population_objective(tuple(from_log(z) for z in pop_z), graphs, objective, spec))
+            loss = torch.sum(objective_of(tuple(from_log(z) for z in pop_z), graphs))
             wrt = [x for z in pop_z for x in z.leaves()]
             grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-        new_z = tuple(z.map(lambda p: p.detach() - lr * _zero_if_none(next(grads), p)) for z in pop_z)
+        new_z = tuple(z.map(lambda p: p.detach() - lr * _grad_of(next(grads), p)) for z in pop_z)
         new_pop = tuple(from_log(z) for z in new_z)
         with torch.no_grad():
-            return new_pop, population_objective(new_pop, graphs, objective, spec)
+            return new_pop, objective_of(new_pop, graphs)
 
     return dse_step
 
 
-def _zero_if_none(g, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(like) if g is None else g
+def _grad_of(g, p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient laid out as ``p`` is (a partial sum reduced; zeros where unused)."""
+    if g is None:
+        return torch.zeros_like(p)
+    return g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+
+
+def _member_spec(mesh, pop_axes=("pod", "data")):
+    from repro_torch.models.sharding import Spec, axis_names
+
+    return Spec(tuple(a for a in pop_axes if a in axis_names(mesh)) or None)
+
+
+def shard_population(mesh, pop, pop_axes=("pod", "data")):
+    """The population ``(tech, arch)`` as DTensors on ``mesh``, the members
+    split over the dims of ``pop_axes`` it has (their product)."""
+    from repro_torch.models.sharding import distribute
+
+    s = _member_spec(mesh, pop_axes)
+    return tuple(t.map(lambda x: distribute(x, mesh, s)) for t in pop)
+
+
+def dse_in_shardings(mesh, pop, graphs: Graph):
+    """The ``models.sharding.Spec`` trees the DSE step's inputs are laid out
+    by: every member leaf over ("pod", "data") where the mesh has them; a
+    workload leaf over "model" where the mesh has it and its size divides
+    the leaf's leading dim, else replicated (so a mesh without "model"
+    replicates the workloads).  Any mesh with ``.shape`` and
+    ``.axis_names``, or a ``DeviceMesh``."""
+    from repro_torch.models.sharding import Spec, mesh_axes
+
+    pop_s = tuple(t.map(lambda _: _member_spec(mesh)) for t in pop)
+    w = mesh_axes(mesh).get("model", 0)
+
+    def spec(x):
+        return Spec("model") if w and x.ndim >= 1 and x.shape[0] % w == 0 else Spec()
+
+    return pop_s, Graph(**{f: spec(getattr(graphs, f)) for f in DATA_FIELDS}, names=graphs.names)
+
+
+def lay_out_dse_inputs(mesh, pop, graphs: Graph):
+    """``(pop, graphs)`` as DTensors on ``mesh``, laid out by
+    :func:`dse_in_shardings` (a DTensor already so laid out is kept)."""
+    from repro_torch.models.sharding import distribute
+
+    g_s = dse_in_shardings(mesh, pop, graphs)[1]
+    return shard_population(mesh, pop), Graph(
+        **{f: distribute(getattr(graphs, f), mesh, getattr(g_s, f)) for f in DATA_FIELDS}, names=graphs.names)

@@ -21,6 +21,13 @@ by ``launch.specs``; one train step, prefill or decode step runs under
     of the traced run;
   * ``roofline``: the three terms over an NVIDIA H100 SXM's rates below.
 
+``--popsim`` runs DRAGON's own population-DSE step instead
+(:func:`run_popsim`): 4,096 members over ("pod", "data"), bert_base stacked
+once for each rank of "model" over it, one ``popsim.make_dse_step(mesh=)``
+step whose workload mean is an all-reduce over "model"; its record has the
+reference's fields (``compile_s``: the traced run's seconds) and goes to
+``popsim__{mesh}.json``.
+
 The fake group is process-global: each process runs one mesh size, and
 ``--multipod both`` runs the two in subprocesses of their own.
 
@@ -28,6 +35,7 @@ Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multipod both] [--out results/dryrun_torch]
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k --reduced   # smoke size
+  python -m repro_torch.launch.dryrun --popsim [--multipod both]
 
 ``--reduced`` runs each arch's smoke-size config (a MoE's with 16 experts at
 least, so that each rank of the model axis holds one) at the full shapes.
@@ -64,8 +72,7 @@ HBM_BW = 3.35e12  # HBM3 bytes/s
 NVLINK_BW = 450e9  # NVLink 4 bytes/s per direction: a collective group inside one 8-GPU node
 NET_BW = 50e9  # one 400 Gb/s NDR InfiniBand port a GPU: a group that spans nodes
 
-NEXT_SLICE = ("dryrun --popsim: the population DSE's member sharding is the next slice of the port "
-              "(ROADMAP.md queue 1: GPipe, compressed_psum, popsim's member sharding)")
+POPSIM_MEMBERS = 4096
 
 
 def opt_cfg_for(cfg) -> AdamWConfig:
@@ -196,6 +203,36 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, parallelism: str = "tp
     return rec
 
 
+def run_popsim(multi_pod: bool) -> dict:
+    """DRAGON's population-DSE step on the production mesh (the fake group
+    must be started with its rank count), on meta tensors laid out by
+    ``popsim.dse_in_shardings``.  Returns the record."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.popsim import init_population, lay_out_dse_inputs, make_dse_step
+    from repro_torch.workloads import get_workload
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    pop = tuple(t.map(lambda x: x.to("meta")) for t in init_population(0, POPSIM_MEMBERS, device="cpu"))
+    graphs = Graph.stack([get_workload("bert_base", device="cpu")] * dict(zip(axis_names(mesh), mesh.shape))["model"])
+    pop, graphs = lay_out_dse_inputs(mesh, pop, graphs.to("meta"))
+    t0 = time.time()
+    tr = trace(make_dse_step(mesh=mesh), pop, graphs)
+    t_run = time.time() - t0
+    costs = tr.costs()
+    return {
+        "arch": "dragon-popsim-dse",
+        "shape": f"pop{POPSIM_MEMBERS}",
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "chips": mesh_chips(mesh),
+        "kind": "dse",
+        "ok": True,
+        "compile_s": round(t_run, 2),
+        "flops_per_device": costs["flops"],
+        "bytes_per_device": costs["bytes"],
+        "collectives": collective_stats(tr),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -210,8 +247,6 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", help="the smoke-size config of each arch (tests)")
     args = ap.parse_args(argv)
 
-    if args.popsim:
-        raise NotImplementedError(NEXT_SLICE)
     if args.multipod == "both":  # one fake group a process: one subprocess a mesh size
         base = [a for a in (argv if argv is not None else sys.argv[1:])]
         i = base.index("--multipod")
@@ -222,6 +257,15 @@ def main(argv=None):
     multi_pod = args.multipod == "on"
     os.makedirs(args.out, exist_ok=True)
     start_fake_group(512 if multi_pod else 256)
+    if args.popsim:
+        rec = run_popsim(multi_pod)
+        with open(os.path.join(args.out, f"popsim__{rec['mesh']}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"[dryrun] popsim {rec['mesh']}: OK run={rec['compile_s']}s flops/dev={rec['flops_per_device']:.4g} "
+              f"bytes/dev={rec['bytes_per_device']:.4g} collectives={rec['collectives']['total_bytes']} link bytes",
+              flush=True)
+        dist.destroy_process_group()
+        return
 
     cells = [(a, s) for a in all_archs() for s in SHAPES] if args.all else [(args.arch, args.shape)]
     failed = 0

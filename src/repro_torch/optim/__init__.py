@@ -11,6 +11,7 @@ from repro_torch.optim.adamw import (  # noqa: F401
 )
 from repro_torch.optim.grad_compress import (  # noqa: F401
     compress_decompress,
+    compressed_psum,
     ef_compress_tree,
     init_error_buffer,
 )

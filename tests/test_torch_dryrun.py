@@ -17,6 +17,8 @@
   every reference field but ``xla_*``, the argument bytes against the spec
   arithmetic, and dp's collective bytes below tp's for granite-3-8b's train
   cell at full size.
+* The ``--popsim`` record on 16x16: the population-DSE step's FLOPs a rank
+  against the unsharded step on the same local problem.
 """
 import dataclasses
 import json
@@ -313,12 +315,38 @@ def test_h100_roofline_constants():
     assert (dryrun.PEAK_FLOPS, dryrun.HBM_BW, dryrun.NVLINK_BW, dryrun.NET_BW) == (989e12, 3.35e12, 450e9, 50e9)
 
 
+POPSIM_FIELDS = {"arch", "shape", "mesh", "chips", "kind", "ok", "compile_s", "flops_per_device", "bytes_per_device",
+                 "collectives"}
+
+
 def test_cli_writes_a_record_and_popsim_names_the_next_slice(tmp_path):
+    """The CLI writes a cell's record, and ``--popsim`` writes the
+    population-DSE step's record on 16x16: the reference's fields, 256 chips, and per rank the FLOPs of the unsharded
+    step on the same local problem (4,096 / 16 members, one of the 16
+    workloads) plus the three divisions of a member's local mean by the 16
+    ranks of "model" (the loss's, its gradient's, the new objective's), and
+    the all-reduces over "model" that make the workload mean."""
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-3-8b", "--shape",
                           "decode_32k", "--reduced", "--out", str(tmp_path)], capture_output=True, text=True,
                          env=ENV, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads((tmp_path / "granite-3-8b-smoke__decode_32k__16x16.json").read_text())
     assert rec["ok"] and "[dryrun] granite-3-8b-smoke x decode_32k [16x16]: OK" in out.stdout
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dryrun.main(["--popsim"])
+
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--popsim", "--out", str(tmp_path)],
+                         capture_output=True, text=True, env=ENV, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads((tmp_path / "popsim__16x16.json").read_text())
+    assert set(rec) == POPSIM_FIELDS and "[dryrun] popsim 16x16: OK" in out.stdout
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["chips"], rec["kind"], rec["ok"]) == \
+        ("dragon-popsim-dse", "pop4096", "16x16", 256, "dse", True)
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.popsim import init_population, make_dse_step
+    from repro_torch.workloads import get_workload
+
+    local = dryrun.POPSIM_MEMBERS // 16
+    pop = tuple(t.map(lambda x: x.to("meta")) for t in init_population(0, local, device="cpu"))
+    graphs = Graph.stack([get_workload("bert_base", device="cpu")]).to("meta")
+    assert rec["flops_per_device"] == program_costs(make_dse_step(), pop, graphs)["flops"] + 3 * local
+    coll = rec["collectives"]
+    assert coll["total_bytes"] > 0 and set(coll["bytes_by_kind"]) == {"all-reduce"}
