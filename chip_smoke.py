@@ -24,12 +24,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    (torch.profiler over many calls), its plain version's, and for attention the
    time of PyTorch's scaled_dot_product_attention on the same inputs (a
    yardstick the port never calls), the float32-pipe kernel timed at
-   [1,32,4096,64] and [1,32,4096,128] in float32 and at kimi-k2's bf16 heads
-   (q [1,64,4096,112], k and v [1,8,4096,112]), the tensor-core kernel at the
-   dense families' q [1,32,4096,128] over 8 KV heads; attention also at the
+   [1,32,4096,64] and [1,32,4096,128] in float32, the tensor-core kernel at the
+   dense families' q [1,32,4096,128] over 8 KV heads and at kimi-k2's heads
+   (q [1,64,4096,112], k and v [1,8,4096,112]); attention also at the
    transformer families' shapes: the vision model's cross-attention (not
    causal, 1,601 patches) in prefill and at one query a decode step,
-   llama4-scout's GQA group 5, musicgen's MHA at D 64; the scans' backwards
+   llama4-scout's GQA group 5, musicgen's MHA at D 64, kimi-k2's 64 heads of
+   112 over 8 at the engine's prompt buckets; the scans' backwards
    (plain PyTorch from the state entering each of the kernel's chunks) on the
    card against the same functions on the CPU (computed on a host thread
    while the phase runs) at falcon-mamba's layer (u [1,4096,8192], N 16) and
@@ -132,9 +133,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    printed beside bench_serving.py's 1.5x floor (a finding, not a gate);
 8. the serving path, with the launch counts set to 0 just before and read
    just after: zamba2-1.2b, falcon-mamba-7b, granite-3-8b,
-   llama-3.2-vision-11b and musicgen-large at full width and depth, and
-   llama4-scout-17b-a16e at full width and 4 of its 48 layers (bf16
-   activations, fp32 weights from a seeded torch.Generator on the card), each
+   llama-3.2-vision-11b and musicgen-large at full width and depth,
+   llama4-scout-17b-a16e at full width and 4 of its 48 layers, and
+   kimi-k2-1t-a32b at full width (384 experts, top-8, 64 heads of 112) and 1
+   of its 61 layers (bf16 activations; weights from a seeded torch.Generator
+   on the card, fp32, or bf16 where the config stores them so), each
    behind an Engine(slots=2, max_len=4608) answering 4 greedy requests
    (prompts of 4096, 1000, 257 and 64 tokens, 16 tokens each; the kv-cache
    families prefill them padded to 4096, 1024, 512 and 64; musicgen's are
@@ -149,11 +152,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    step ms over the last 3, tokens/s, the step's bound: model FLOPs over
    989 TFLOP/s, the idle share and the plain attention backward's share of
    device time from torch.profiler, peak memory); musicgen-large at full
-   width with 24 of 48 layers, 3 steps at 1 x 4,096 x 4 codebooks; llama-3.2-vision-11b
+   width with 12 of 48 layers, 3 steps at 1 x 4,096 x 4 codebooks; llama-3.2-vision-11b
    with 5 of 40 layers and llama4-scout-17b-a16e with 1 of 48 (int8 moments),
    5 steps each on one fixed batch of 1 x 1,024, whose loss must fall;
    zamba2-1.2b at full width and depth and falcon-mamba-7b at full width with
-   16 of 64 layers, 3 steps at 1 x 4,096 (each scan backward's share of
+   8 of 64 layers, 3 steps at 1 x 4,096 (each scan backward's share of
    device time printed); each run's launches equal to steps x microbatches x
    (attention: 2 a self layer, its forward and its recompute, + 1 a cross
    layer or a shared block; K4 or K5: 2 an SSM layer) and none of the float32
@@ -206,11 +209,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    tools/make_torch_ssm_ref.py and tools/make_torch_lm_ref.py from the JAX
    models on the same numpy weights: granite-3-8b at 2 layers,
    llama-3.2-vision-11b at 5 with nonzero cross gates and a seeded vision
-   input, musicgen-large at 2, llama4-scout at 1, all at full width) against
+   input, musicgen-large at 2, llama4-scout at 1, kimi-k2 at 1 with 16 of its
+   384 experts, all at full width) against
    this package on the card in float32 (prefill logits and 8 teacher-forced
    decode steps), which runs attention through the float32 kernel; the
-   fixtures' numpy weights are made on host threads from the start of the
-   run; then tests/data/torch_train_ref.npz (made by
+   fixtures' numpy weights are made on host threads from the affine-scan
+   path on (after the design and pool paths, which the host's cores bound);
+   then tests/data/torch_train_ref.npz (made by
    tools/make_torch_train_ref.py) on the same granite-3-8b weights: the loss,
    grad norm, per-leaf grad norms, sampled grads and 3 AdamW steps' losses in
    float32, each within 4x the reference's own spread.
@@ -255,11 +260,16 @@ K1_SEED, K3_SEED, K4_SEED, K5_SEED = 1, 3, 4, 5
 K4_DRAWS = 8  # float32 draws at 4,096 steps on which K4 is held to the float64 recurrence
 
 SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b", "granite-3-8b", "llama-3.2-vision-11b", "musicgen-large",
-                "llama4-scout-17b-a16e")
-# the one depth cut of the serving path: llama4-scout-17b-a16e at full width
+                "llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+# the depth cuts of the serving path: llama4-scout-17b-a16e at full width
 # (16 experts, d_model 5120) with 4 of its 48 layers, 38.6 GiB of fp32 weights
-# and ~56 GiB at the peak of the bf16 cast; all 48 layers would be 379 GiB
-SERVE_DEPTH = {"llama4-scout-17b-a16e": 4}
+# and ~56 GiB at the peak of the bf16 cast; all 48 layers would be 379 GiB.
+# kimi-k2-1t-a32b at full width (384 experts of 7168 x 2048, top-8, 64 heads
+# of 112, vocabulary 163,840) with 1 of its 61 layers: 19.4 B parameters, 36.1
+# GiB stored in bf16 (its param_dtype), ~57 GiB at the peak of the draw (each
+# leaf is drawn in fp32 before its cast, an expert leaf 21 GiB); 2 layers would
+# be 67.8 GiB stored, past 80 GB at that peak
+SERVE_DEPTH = {"llama4-scout-17b-a16e": 4, "kimi-k2-1t-a32b": 1}
 SERVE_PROMPTS = (4096, 1000, 257, 64)  # tokens; two slots, so slots are reused
 SERVE_NEW_TOKENS = 16
 SERVE_MAX_LEN = 4608
@@ -311,6 +321,13 @@ REF_HISTORY = {
             223655488.0, 178037568.0, 141780176.0, 112474072.0, 88864552.0, 70142064.0,
             55622240.0, 44438412.0],
 }
+
+
+T_START = time.perf_counter()  # reset by main: the run's clock
+
+
+def stamp(what: str) -> None:
+    print(f"  {what}: done {time.perf_counter() - T_START:.1f} s into the run")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -811,9 +828,9 @@ def attention_records(device) -> dict:
     shapes and beyond; records timed at q, k, v [1,32,4096,64], the tensor-core
     kernel in bf16 (the serving path's) and the other in float32 (the
     agreement path's), the float32-pipe kernel at [1,32,4096,128] in
-    float32 and at kimi-k2's bf16 heads, q [1,64,4096,112] with k and v
-    [1,8,4096,112], and the tensor-core kernel at q [1,32,4096,128] with k
-    and v [1,8,4096,128] (the dense families' heads)."""
+    float32, and the tensor-core kernel at kimi-k2's heads, q [1,64,4096,112]
+    with k and v [1,8,4096,112], and at q [1,32,4096,128] with k and v
+    [1,8,4096,128] (the dense families' heads)."""
     import torch
     import torch.nn.functional as F
 
@@ -870,7 +887,13 @@ def attention_records(device) -> dict:
     cases += [(randn_lm, 1, 32, 8, S, S, 128, True, (bf16,)) for S in buckets[1:]]
     cases += [(randn_lm, 1, 32, 32, S, S, 64, True, (bf16,)) for S in buckets[1:3]]
     cases += [(randn_lm, 1, Hq, Hkv, 67, 67, D, True, (f32,))
-              for Hq, Hkv, D in ((40, 8, 128), (32, 8, 128), (32, 32, 64))]
+              for Hq, Hkv, D in ((40, 8, 128), (32, 8, 128), (32, 32, 64), (64, 8, 112))]
+    # kimi-k2's heads (64 of 112 over 8) on the tensor-core kernel: its serving
+    # shapes at the engine's buckets, one tile not causal (the two 64-column
+    # boxes, the second zero-filled past column 112, and m64n112k16 alone), and
+    # rows that see no key (Sq > Skv)
+    cases += [(randn_lm, 1, 64, 8, S, S, 112, True, (bf16,)) for S in buckets]
+    cases += [(randn_lm, 1, 1, 1, 64, 64, 112, False, (bf16,)), (randn_lm, 1, 64, 8, 300, 200, 112, True, (bf16,))]
     # and every shape the training path gives it that the cases above miss
     # (the Trainer's batch 2, the float32 agreement's batch 2 of 128 tokens)
     have = {c[1:8] + (dt,) for c in cases for dt in c[8]}
@@ -905,15 +928,17 @@ def attention_records(device) -> dict:
         ms=device_ms(lambda: fa.flash_attention_op(q, k, v, True, 64 ** -0.5), 10, "flash_attention_kernel"),
         plain_ms=call_ms(lambda: ref.reference_attention(q, k, v, causal=True), 3),
         library_ms=call_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20))
-    # the float32-pipe kernel at the dense families' head width, and at
-    # kimi-k2's bf16 heads (64 query heads, 8 KV heads, 112 wide: serving)
+    # the float32-pipe kernel at the dense families' head width
     q, k, v = (randn_k3(1, 32, 4096, 128) for _ in range(3))
     rec["flash_attention/f32_d128"] = _attention_record(q, k, v, FP32_OPS_PER_S, "flash_attention", 10,
                                                         "flash_attention q,k,v[1,32,4096,128] float32 causal")
+    # the tensor-core kernel at kimi-k2's heads (64 query heads, 8 KV heads, 112
+    # wide: its serving prefill); the float32-pipe kernel's record at this shape
+    # until the tensor-core kernel took D 112
     q, k, v = (randn_k3(1, H, 4096, 112).to(bf16) for H in (64, 8, 8))
-    rec["flash_attention/bf16_d112_gqa8"] = _attention_record(
-        q, k, v, BF16_TC_OPS_PER_S, "flash_attention", 10,
-        "flash_attention q[1,64,4096,112] kv[1,8,4096,112] bf16 causal")
+    rec["flash_attention_sm90/bf16_d112_gqa8"] = _attention_record(
+        q, k, v, BF16_TC_OPS_PER_S, "flash_attention_sm90", 20,
+        "flash_attention_sm90 q[1,64,4096,112] kv[1,8,4096,112] bf16 causal")
     # the tensor-core kernel at the dense families' head width (granite,
     # llama-3.2-vision): 32 query heads of 128 over 8 KV heads
     q, k, v = (randn_lm(1, H, 4096, 128).to(bf16) for H in (32, 8, 8))
@@ -1171,9 +1196,13 @@ def phase_model_kernels(device, scan_cases: list, cpu: list) -> dict:
     (``cpu``: the futures of ``start_cpu_scan_backward``); returns the
     records with (ms, method) pairs turned into ms."""
     rec = attention_records(device)
+    stamp("attention's cases and records")
     rec["ssd_chunk_scan"] = ssd_record(device)
+    stamp("K4's checks and record")
     rec["selective_scan"] = scan_record(device)
+    stamp("K5's checks and record")
     hold_scan_backward(card_scan_backward_checks(device, scan_cases, rec), cpu)
+    stamp("the scans' backwards")
     for r in rec.values():  # (ms, method) pairs -> ms
         r["ms_method"] = r["ms"][1]
         r["ms"], r["plain_ms"] = r["ms"][0], r["plain_ms"][0]
@@ -1268,11 +1297,13 @@ def phase_serve(device) -> dict:
         if name in SERVE_DEPTH:
             print(f"  serve {name}: full width, depth cut to {cfg.n_layers} of {get_config(name).n_layers} layers")
         before = {k: runtime.LAUNCHES[k] for k in ("flash_attention_sm90", "flash_attention")}
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = model.init(seed=0, device=device)
         torch.cuda.synchronize()
         print(f"  serve {name}: {model.param_count() / 1e9:.3f} B parameters drawn on the card in "
-              f"{time.perf_counter() - t0:.2f} s")
+              f"{time.perf_counter() - t0:.2f} s (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while "
+              f"drawing)")
         eng = Engine(model, params, slots=2, max_len=SERVE_MAX_LEN, device=device)
         del params  # the engine keeps the cast copy
         torch.cuda.synchronize()
@@ -1346,16 +1377,25 @@ def phase_serve(device) -> dict:
     return per_model
 
 
+def agree_config(ref, key: str):
+    """A fixture entry's config: float32 at its depth, and at its expert count
+    where it cuts the experts (``n_experts``)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(str(ref[f"{key}/name"]))
+    kw = dict(dtype="float32", n_layers=int(ref[f"{key}/n_layers"]))
+    if f"{key}/n_experts" in ref:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=int(ref[f"{key}/n_experts"]))
+    return dataclasses.replace(cfg, **kw)
+
+
 def agree_weights(ref, key: str) -> dict:
     """A fixture entry's numpy weights: ``init_numpy(seed)`` at its depth, with
     the cross layers' gates the fixture stores (they start at 0, which would
     zero the cross path)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(str(ref[f"{key}/name"])), dtype="float32",
-                              n_layers=int(ref[f"{key}/n_layers"]))
-    w = build_model(cfg).init_numpy(int(ref[f"{key}/seed"]))
+    w = build_model(agree_config(ref, key)).init_numpy(int(ref[f"{key}/seed"]))
     if f"{key}/attn_gate" in ref:
         w["cross_layers"]["attn_gate"], w["cross_layers"]["mlp_gate"] = ref[f"{key}/attn_gate"], ref[f"{key}/mlp_gate"]
     return w
@@ -1364,9 +1404,9 @@ def agree_weights(ref, key: str) -> dict:
 def prefetch_agree_weights(path) -> dict:
     """Start making a fixture's numpy weights on a host thread, entry by entry
     (numpy draws without holding the interpreter lock, so the paths before the
-    agreement path run meanwhile: 7.2 B float32 draws for torch_lm_ref.npz).
-    Returns {entry: future}; the thread is a daemon, so a failed run exits
-    without waiting for it."""
+    agreement path run meanwhile: 10.4 B float32 draws, 41.6 GB, for
+    torch_lm_ref.npz, 2.3 B for torch_ssm_ref.npz).  Returns {entry: future};
+    the thread is a daemon, so a failed run exits without waiting for it."""
     import concurrent.futures
     import threading
 
@@ -1401,14 +1441,12 @@ def phase_agree(device, path=FIXTURE, weights=None) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model, params_from_numpy
 
     ref = dict(np.load(path))
     for key in [str(k) for k in ref["entries"]]:
         t_entry = time.perf_counter()
-        name, n_layers = str(ref[f"{key}/name"]), int(ref[f"{key}/n_layers"])
-        cfg = dataclasses.replace(get_config(name), dtype="float32", n_layers=n_layers)
+        cfg = agree_config(ref, key)
         model = build_model(cfg)
         t0 = time.perf_counter()
         w = weights.pop(key).result() if weights is not None else agree_weights(ref, key)
@@ -1469,11 +1507,11 @@ TRAIN_FIXTURE_KEY = "granite-3-8b@2"  # the torch_lm_ref.npz entry whose numpy w
 # (name, layers kept, batch, sequence, microbatches, steps, int8 states, one fixed batch)
 TRAIN_RUNS = (
     ("granite-3-8b", 4, 2, 4096, 2, 5, False, False),  # the main run: train_4k's sequence
-    ("musicgen-large", 24, 1, 4096, 1, 3, False, False),  # 24 of 48 layers: at full depth the script passed 600 s
+    ("musicgen-large", 12, 1, 4096, 1, 3, False, False),  # 12 of 48: at 24 with kimi-k2 served, 600 s passed
     ("llama-3.2-vision-11b", 5, 1, 1024, 1, 5, False, True),  # one group: 4 self layers and a cross layer
     ("llama4-scout-17b-a16e", 1, 1, 1024, 1, 5, True, True),  # 16 experts; int8 moments: 38.6 GiB of state
     ("zamba2-1.2b", 38, 1, 4096, 1, 3, False, False),  # full depth: 1.183 B parameters, 17.6 GiB with grads
-    ("falcon-mamba-7b", 16, 1, 4096, 1, 3, False, False),  # 16 of 64 layers: 2.218 B parameters, 33.0 GiB
+    ("falcon-mamba-7b", 8, 1, 4096, 1, 3, False, False),  # 8 of 64 (16 until kimi-k2 was served): 1.375 B
 )
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAIL_AT = 8, 4, 6
 TRAINER_MODEL, TRAINER_LAYERS, TRAINER_BATCH, TRAINER_SEQ = "musicgen-large", 2, 2, 1024
@@ -3569,6 +3607,7 @@ def drive(name: str, phases, kernels) -> dict:
     from repro_torch.kernels import runtime
 
     print(f"{name} path:")
+    t0 = time.perf_counter()
     runtime.reset_launches()
     for phase in phases:
         phase()
@@ -3577,6 +3616,7 @@ def drive(name: str, phases, kernels) -> dict:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the {name} path")
     print(f"{name}-path launches: {dict(runtime.LAUNCHES)}")
+    print(f"{name} path: {time.perf_counter() - t0:.1f} s, ending {time.perf_counter() - T_START:.1f} s into the run")
     return launches
 
 
@@ -3584,6 +3624,10 @@ def main() -> int:
     # the Trainer's replay runs with deterministic algorithms, for which cuBLAS
     # needs a fixed workspace, set before CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # segments that grow in place: llama4-scout's int8 train step peaks at 70.7
+    # of the card's 79.2 GiB, and with fixed segments one run's 10.29 GiB of
+    # free fragments could not hold the step's 3.86 GiB block
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3591,21 +3635,19 @@ def main() -> int:
         return 1
     from repro_torch.kernels import runtime
 
-    t_start = time.perf_counter()
+    global T_START
+    T_START = time.perf_counter()
     device = runtime.resolve_device(None)
     smi = phase_env()
     phase_build()
     # the mesh path's dry runs, on the host while the card runs the other paths
     dryruns = start_dryruns()
-    # the agreement path's numpy weights for the transformer and SSM fixtures,
-    # made on host threads while the other paths run
-    lm_weights = prefetch_agree_weights(LM_FIXTURE)
-    ssm_weights = prefetch_agree_weights(FIXTURE)
     print("kernels against their plain versions:")
     # the CPU's side of the scans' backward checks, on a host thread while the kernels are checked
     scan_cases = scan_backward_cases()
     scan_cpu = start_cpu_scan_backward(scan_cases)
     rec = phase_kernels(device)
+    stamp("K1's and K2's checks and records")
     rec.update(phase_model_kernels(device, scan_cases, scan_cpu))
     del scan_cases, scan_cpu
 
@@ -3624,6 +3666,11 @@ def main() -> int:
         launches[k] += n  # and the design path's
     for k, n in drive("pool", [lambda: phase_pool(device, smi, design)], DESIGN_KERNELS).items():
         launches[k] += n  # and the pool path's (its staged and pooled tiers; workers count their own)
+    # the agreement path's numpy weights for the transformer and SSM fixtures,
+    # made on host threads while the paths from here on run (started after the
+    # design and pool paths, which are bound by the host's cores)
+    lm_weights = prefetch_agree_weights(LM_FIXTURE)
+    ssm_weights = prefetch_agree_weights(FIXTURE)
     launches.update(drive("affine-scan", [lambda: phase_affine_scan(device)], SCAN_KERNELS))
     t0 = time.perf_counter()
     served = {}
@@ -3658,6 +3705,9 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     print(f"mesh path wall {time.perf_counter() - t0:.1f} s")
     print("agreement with the reference package (fixtures), float32:")
+    with open("/proc/meminfo") as f:  # the host's headroom beside the fixtures' numpy weights
+        mem = {ln.split(":")[0]: int(ln.split()[1]) / 2**20 for ln in f if ln.startswith(("MemTotal", "MemAvailable"))}
+    print(f"  host memory: {mem['MemAvailable']:.1f} of {mem['MemTotal']:.1f} GiB available")
     t0 = time.perf_counter()
     import numpy as np
 
@@ -3704,7 +3754,7 @@ def main() -> int:
         print(f"  {name}: device {r['ms']:.6f} ms ({r['ms_method']}){host}{by_prompt}; plain device "
               f"{r['plain_ms']:.6f} ms{library}; bound {bound:.6f} ms ({by}; "
               + ", ".join(f"{k} {v:.6f}" for k, v in terms.items()) + ")")
-    print(f"command time: {time.perf_counter() - t_start:.1f} s")
+    print(f"command time: {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,16 @@
 // Causal (or full) attention with grouped KV heads and an online softmax, bf16 on
 // Hopper's tensor cores:
 //   o[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / group, j]) v[b, h / group, j]
-// over contiguous [B, H, S, D] bfloat16 arrays, D = 64 or 128, output in bfloat16.
+// over contiguous [B, H, S, D] bfloat16 arrays, D = 64, 112 or 128, output in bfloat16.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (_attn_kernel) for bf16 q, k and v of head width 64 or 128; float32 and the
-// narrow head widths stay on flash_attention.cu, chosen by the wrapper from the
-// dtype and D alone.  Numerics kept from the TPU kernel: the scores, the running
-// max m, the running sum l and the accumulator in float32; a masked causal score
-// is the finite -1e30 and the running max starts at -1e30; the output is
-// acc / max(l, 1e-30); keys past Skv are left out of the softmax (p = 0); the mask
-// is suffix-causal, query i seeing key j when j <= i + (Skv - Sq).  A row that sees
+// (_attn_kernel) for bf16 q, k and v of head width 64, 112 (kimi-k2) or 128;
+// float32 and the other head widths stay on flash_attention.cu, chosen by the
+// wrapper from the dtype and D alone.  Numerics kept from the TPU kernel: the
+// scores, the running max m, the running sum l and the accumulator in float32; a
+// masked causal score is the finite -1e30 and the running max starts at -1e30;
+// the output is acc / max(l, 1e-30); keys past Skv are left out of the softmax
+// (p = 0); the mask is suffix-causal, query i seeing key j when j <= i + (Skv - Sq).  A row that sees
 // no key (Sq > Skv) comes out as the plain mean of the values, as the dense
 // version gives it: its q tile walks every key with every score at -1e30.  The
 // one change: P is rounded to bf16 before the P V product, as the tensor cores
@@ -26,13 +26,19 @@
 //     fragment is the A operand's, so P needs no trip through shared memory) and V
 //     from shared memory, stored [keys, D] and so MN-major (the transpose bit).
 //   * TMA.  One producer warp loads the block's Q once and K/V tiles of 64 keys
-//     into a ring of 4 (D = 64) or 3 (D = 128) stages, completion on mbarriers;
+//     into a ring of 4 (D = 64) or 3 (D = 112, 128) stages, completion on mbarriers;
 //     the consumers free a stage through a second mbarrier.  Tiles land 128-byte
 //     swizzled, the layout the wgmma descriptors name (B128), so no thread touches
-//     a K/V byte.  A row of 128 bytes is 64 columns, so at D = 128 each tile is two
-//     64-column boxes.  The tensor maps are 3-D, [B*H, S, D]: past Skv (or Sq) TMA
-//     fills zeros instead of reading the next head's rows, and those keys are
-//     masked too.
+//     a K/V byte.  A row of 128 bytes is 64 columns, so at D = 112 and 128 each
+//     tile is two 64-column boxes.  The tensor maps are 3-D, [B*H, S, D]: past Skv
+//     (or Sq) TMA fills zeros instead of reading the next head's rows, and those
+//     keys are masked too.  At D = 112 the map's rows stay 112 wide (224 bytes, a
+//     multiple of 16, as TMA wants): the second box's columns 112-127 lie past the
+//     row and TMA fills them with zeros too, counting them in the transaction bytes
+//     like any other (so each box completes its full 8 KB on the mbarrier).  S =
+//     Q K^T then runs 7 k-steps of 16 columns, never reading the zero columns, and
+//     O += P V is m64n112k16: its B descriptor names the same two 64-column
+//     swizzle atoms as n128's, and the product reads 48 columns of the second.
 //   * Two consumer warpgroups of 64 query rows share each K/V tile: 128 rows a
 //     block.  The softmax runs on the S fragment in registers (each thread holds
 //     two rows; a row's max and sum cross four lanes by shuffles), in log2 units
@@ -73,8 +79,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  static constexpr int kHalves = D / kBox;                  // 64-column boxes per row
+  static constexpr int kHalves = (D + kBox - 1) / kBox;     // 64-column boxes per row (D = 112: 2)
   static constexpr int kStages = D == 64 ? 4 : 3;           // K/V ring depth
+  static constexpr int kPV = D;                             // N of O += P V: the accumulator's columns
   static constexpr int kTileBytes = kHalves * kBoxBytes;    // 64 rows of q, k or v
   static constexpr int kQBytes = kConsumers * kTileBytes;   // the block's q rows
   static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;  // + slack to align to 1 KB
@@ -181,6 +188,27 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[56] += A . B, m64n112k16: A, four registers of bf16 pairs; B in shared memory, MN-major
+// (transpose bit set): O += P V at D = 112, V stored [keys, 112] in two 64-column swizzle atoms.
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d[64] += A . B, m64n128k16: A, four registers of bf16 pairs; B in shared memory, MN-major
 // (transpose bit set): O += P V with V stored [keys, D].
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
@@ -271,9 +299,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
   const int kv_end = kv_end_of(r0);
   const uint32_t qw = qs + wg * C::kTileBytes;
 
-  float acc[D / 2];
+  float acc[C::kPV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < C::kPV / 2; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // l: this thread's part of the row sum
   if (kv_end > 0) mbar_wait(smem_u32(&qbar), 0);
 
@@ -282,7 +310,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
     mbar_wait(smem_u32(&full[s]), (j / C::kStages) & 1);
     const int k0 = j * kBlockN;
     if (k0 < kv_end) {
-      // S = Q K^T: D / 16 steps of 16 columns, 32 bytes along the swizzled rows
+      // S = Q K^T: D / 16 steps of 16 columns, 32 bytes along the swizzled rows (at
+      // D = 112: four in the first box, three in the second; its zero columns unread)
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.0f;  // overwritten (accumulate 0); set so no register is read unset
@@ -336,14 +365,15 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
         p[i / 2] = pack_bf16(p0, p1);
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < C::kPV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // O += P V: 4 steps of 16 keys, 16 rows x 128 bytes apart in the swizzled V tile
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         const uint64_t b = smem_desc(vs + s * C::kTileBytes + kk * 2048, kBoxBytes, 1024);
-        if constexpr (D == 64) wgmma_rs_n64(acc, p + 4 * kk, b);
+        if constexpr (C::kPV == 64) wgmma_rs_n64(acc, p + 4 * kk, b);
+        else if constexpr (C::kPV == 112) wgmma_rs_n112(acc, p + 4 * kk, b);
         else wgmma_rs_n128(acc, p + 4 * kk, b);
       }
       wgmma_commit();
@@ -361,7 +391,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
   }
   const long long obase = static_cast<long long>(bh) * Sq;
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
+  for (int t = 0; t < D / 8; ++t) {  // columns 0 to D - 1 alone: no byte past the row
     const int col = 8 * t + 2 * (lane % 4);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -395,7 +425,7 @@ EncodeTiled encode_tiled() {
 }
 
 // [bh, rows, D] bf16 as a 3-D map with [64 rows, 64 columns] boxes, 128-byte
-// swizzled; what a box holds past ``rows`` is filled with zeros
+// swizzled; what a box holds past ``rows`` (or past column D) is filled with zeros
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int bh, int rows, int D) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(bh)};
@@ -426,15 +456,17 @@ int launch(EncodeTiled encode, const void* q, const void* k, const void* v, void
 }  // namespace
 
 // q [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], o [B, Hq, Sq, D]; all contiguous bf16
-// with 16-byte aligned bases; D is 64 or 128.  Returns the launch's cudaError_t.
+// with 16-byte aligned bases; D is 64, 112 or 128.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                                            int Hkv, int Sq, int Skv, int D, int causal, float scale,
                                            void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || (D != 64 && D != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || (D != 64 && D != 112 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(encode, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, s);
+  if (D == 112) return launch<112>(encode, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, s);
   return launch<128>(encode, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, scale, s);
 }

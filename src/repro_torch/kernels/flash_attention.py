@@ -4,14 +4,16 @@ CUDA kernels.  Forward only.
 The op ``torch.ops.repro_torch.flash_attention`` launches a kernel on CUDA
 tensors and runs the plain version, ``ref.reference_attention``, on CPU
 tensors.  Which kernel is a function of the dtype and the head width alone
-(:func:`route`): bf16 at D = 64 or 128 goes to the tensor cores
-(``csrc/flash_attention_sm90.cu``: wgmma, K/V tiles by TMA); every other
-float32 or bf16 head width from 1 to 256 to ``csrc/flash_attention.cu`` on the
-float32 pipes, whose float32 numbers match the reference's 2e-5 (a
-tensor-core product in float32 would be TF32).  That kernel is compiled at
-three width caps (64, 128, 256) and takes any D up to each.  Each kernel has
-its own launch count.  Both kernels mask ragged Sq and Skv themselves, so no
-block size has to divide the sequence.
+(:func:`route`): bf16 at D = 64, 112 (kimi-k2's heads) or 128 goes to the
+tensor cores (``csrc/flash_attention_sm90.cu``: wgmma, K/V tiles by TMA);
+float32 at every head width from 1 to 256, and bf16 at every other one, to
+``csrc/flash_attention.cu`` on the float32 pipes, whose float32 numbers match
+the reference's 2e-5 (a tensor-core product in float32 would be TF32).  That
+kernel is compiled at three width caps (64, 128, 256) and takes any D up to
+each.  Each kernel has its own launch count.  A build or launch failure of the
+kernel a call routes to raises: nothing retries on the other kernel.  Both
+kernels mask ragged Sq and Skv themselves, so no block size has to divide the
+sequence.
 
 On DTensors the op has a sharding rule: q, k, v all replicated, all split
 over batch, or all split over heads (each shard holding the KV heads its
@@ -26,7 +28,7 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import reference_attention
 
-SM90_HEAD_DIMS = (64, 128)  # flash_attention_sm90: bf16 on the tensor cores
+SM90_HEAD_DIMS = (64, 112, 128)  # flash_attention_sm90: bf16 on the tensor cores
 MAX_HEAD_DIM = 256  # flash_attention takes every other head width from 1 to this
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,7 +80,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     if out.numel() == 0:  # nothing to attend, no launch
         return out
     if name == "flash_attention_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k and v at head width 64 or 128 must start on a "
+        raise ValueError("flash_attention: bf16 q, k and v at head width 64, 112 or 128 must start on a "
                          "16-byte boundary (TMA reads them)")
     args = (B, Hq, k.shape[1], Sq, k.shape[2], D, int(causal), float(scale))
     lib = runtime.library(name)

@@ -1,9 +1,9 @@
 """Attention at every head width the reference takes.
 
 The reference's flash attention tiles any head width D (its blocks are
-``(block_q, D)``).  The port sends bf16 at D = 64 and 128 to its tensor-core
-kernel and every other width from 1 to 256, float32 or bf16, to its
-float32-pipe kernel (compiled at width caps 64, 128 and 256).  On the CPU the
+``(block_q, D)``).  The port sends bf16 at D = 64, 112 and 128 to its
+tensor-core kernel, and float32 at every width from 1 to 256 and bf16 at every
+other one to its float32-pipe kernel (compiled at width caps 64, 128 and 256).  On the CPU the
 op runs its plain version; these tests hold that, on numpy inputs from a seed,
 against the reference's Pallas kernel (interpret mode, blocks that tile S) and
 its jnp oracle at the widths between and past the caps, with the reference's
@@ -34,7 +34,7 @@ def _np(x) -> np.ndarray:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_route_sends_every_head_width_to_a_kernel(dtype):
     for D in range(1, fa.MAX_HEAD_DIM + 1):
-        want = "flash_attention_sm90" if dtype == torch.bfloat16 and D in (64, 128) else "flash_attention"
+        want = "flash_attention_sm90" if dtype == torch.bfloat16 and D in (64, 112, 128) else "flash_attention"
         assert fa.route(dtype, D) == want, D
     assert {"flash_attention", "flash_attention_sm90"} <= set(runtime.SOURCES) & set(runtime.LAUNCHES)
 

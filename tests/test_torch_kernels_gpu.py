@@ -321,9 +321,19 @@ ATTN_SHAPES_128 = [
     (1, 4, 1, 300, 200, 128),    # Sq > Skv: early rows see no key
     (2, 8, 2, 1, 129, 128),      # Sq = 1
 ]
-# the other head widths, all on the float32-pipe kernel: inside and at each of
-# its width caps (64, 128, 256), and widths that are not a multiple of 4 or 8
-# (its copies element by element)
+# kimi-k2's head width 112: the tensor-core kernel in bf16 (two 64-column TMA
+# boxes a row, the second's columns 112-127 zero-filled past the row; P V as
+# m64n112k16), the float32-pipe kernel in float32
+ATTN_SHAPES_112 = [
+    (1, 1, 1, 64, 64, 112),      # one tile: one K/V tile, one wgmma row block
+    (1, 16, 2, 256, 256, 112),   # GQA 8:1, kimi-k2's group
+    (1, 8, 1, 100, 333, 112),    # ragged, Sq < Skv
+    (1, 8, 1, 300, 200, 112),    # Sq > Skv: early rows see no key
+    (2, 16, 2, 1, 300, 112),     # Sq = 1
+]
+# the other head widths: inside and at each of the float32-pipe kernel's width
+# caps (64, 128, 256), and widths that are not a multiple of 4 or 8 (its copies
+# element by element); D 112 in bf16 goes to the tensor-core kernel
 ATTN_SHAPES_WIDE = [
     (1, 4, 4, 200, 200, 48),
     (2, 8, 2, 100, 333, 112),    # kimi-k2's head width, GQA 4:1, Sq < Skv
@@ -349,7 +359,7 @@ def _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype, rows=True):
     q, k, v = (torch.randn(B, h, s, D, generator=gen, device=cuda).to(dtype)
                for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
     names = ("flash_attention", "flash_attention_sm90")
-    want_kernel = "flash_attention_sm90" if dtype == torch.bfloat16 and D in (64, 128) else "flash_attention"
+    want_kernel = "flash_attention_sm90" if dtype == torch.bfloat16 and D in fa.SM90_HEAD_DIMS else "flash_attention"
     assert fa.route(dtype, D) == want_kernel
     before = {n: runtime.LAUNCHES[n] for n in names}
     got = fa.flash_attention(q, k, v, causal=causal)
@@ -378,6 +388,13 @@ def test_flash_attention_head_width_128_matches_plain(cuda, B, Hq, Hkv, Sq, Skv,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES_112)
+def test_flash_attention_head_width_112_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
+    _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", ATTN_SHAPES_WIDE)
 def test_flash_attention_other_head_widths_match_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype):
     _attention_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, dtype)
@@ -387,7 +404,8 @@ def test_flash_attention_other_head_widths_match_plain(cuda, B, Hq, Hkv, Sq, Skv
 # agreement shapes (float32): the vision model's cross-attention, not causal,
 # q [B,32,Sq,128] against its 1,601 patches (a prime, so a ragged last K/V
 # tile) in prefill and at Sq = 1 in every decode step of 2 slots;
-# llama4-scout's GQA group 5 (40 query heads over 8); musicgen's MHA at D 64
+# llama4-scout's GQA group 5 (40 query heads over 8); musicgen's MHA at D 64;
+# kimi-k2's 64 query heads of 112 over 8
 LM_ATTN_CASES = [
     # B, Hq, Hkv, Sq, Skv, D, causal
     (1, 32, 8, 4096, 1601, 128, False),
@@ -398,6 +416,8 @@ LM_ATTN_CASES = [
     (1, 40, 8, 67, 67, 128, True),
     (1, 32, 32, 1024, 1024, 64, True),
     (1, 32, 32, 67, 67, 64, True),
+    (1, 64, 8, 1024, 1024, 112, True),
+    (1, 64, 8, 67, 67, 112, True),
 ]
 
 

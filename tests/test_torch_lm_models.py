@@ -21,6 +21,12 @@ tolerance away from its float32 run, and the port's bf16 run as far (qwen2.5:
 2.5x and 2.7x on the logits), so bf16 is held where it measures the rounding
 points.  The MoE family is held in bf16 at ``moe_ffn`` on identical inputs:
 a bf16 step upstream can flip a router choice.
+
+kimi-k2 stores its weight matrices in bf16 (``param_dtype``): the port rounds
+the numpy weights to bf16 where ``params_from_numpy`` loads them, while the
+reference keeps float32 arrays it is handed as they are.  Both packages get
+the bf16-rounded values (``as_stored``), and each computes in float32 on them;
+kimi-k2 also runs at its real head width, 112, on the reduced config.
 """
 import dataclasses
 
@@ -42,21 +48,27 @@ from repro_torch.models import moe as port_moe
 from repro_torch.models import transformer as port_T
 from repro_torch.models.model import build_model as port_build
 from repro_torch.models.model import params_from_numpy
+from tools.make_torch_lm_ref import as_stored
 
 TOL = {"float32": dict(atol=2e-4, rtol=0.0), "bfloat16": dict(atol=0.2, rtol=0.05)}
 LM_CONFIGS = ["granite-3-8b", "qwen2.5-32b", "minitron-8b", "phi4-mini-3.8b", "musicgen-large",
               "llama-3.2-vision-11b", "llama4-scout-17b-a16e", "kimi-k2-1t-a32b"]
-# (arch, reduced n_layers in float32, in bfloat16 or None)
+# (arch, reduced n_layers in float32, in bfloat16 or None[, config overrides])
 MODELS = [("granite-3-8b", 2, 1), ("qwen2.5-32b", 2, 1), ("minitron-8b", 2, 1), ("musicgen-large", 2, 1),
-          ("llama-3.2-vision-11b", 4, 2), ("llama4-scout-17b-a16e", 2, None)]
+          ("llama-3.2-vision-11b", 4, 2), ("llama4-scout-17b-a16e", 2, None), ("kimi-k2-1t-a32b", 2, None),
+          ("kimi-k2-1t-a32b", 2, None, {"head_dim": 112})]
+
+
+def _model_id(arch: str, overrides: dict) -> str:
+    return arch + "".join(f"-{k}{v}" for k, v in sorted(overrides.items()))
 
 
 def _np(x) -> np.ndarray:
     return x.float().numpy().copy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-def _pair_cfgs(arch: str, n_layers: int, dtype: str):
-    kw = dict(dtype=dtype, n_layers=n_layers)
+def _pair_cfgs(arch: str, n_layers: int, dtype: str, **overrides):
+    kw = dict(dtype=dtype, n_layers=n_layers, **overrides)
     return (dataclasses.replace(jax_config(arch).reduced(), **kw),
             dataclasses.replace(port_config(arch).reduced(), **kw))
 
@@ -312,15 +324,16 @@ class TestMoE:
 # --------------------------------------------------------------------------- #
 
 
-@pytest.fixture(scope="module", params=[(a, n, "float32") for a, n, _ in MODELS]
-                + [(a, n, "bfloat16") for a, _, n in MODELS if n], ids=lambda p: f"{p[0]}-L{p[1]}-{p[2]}")
+@pytest.fixture(scope="module", params=[(m[0], m[1], "float32", *m[3:]) for m in MODELS]
+                + [(m[0], m[2], "bfloat16", *m[3:]) for m in MODELS if m[2]],
+                ids=lambda p: f"{_model_id(p[0], p[3] if len(p) > 3 else {})}-L{p[1]}-{p[2]}")
 def runs(request):
     """Forward, prefill (exact, and bucketed: right-padded to 16 with
     ``length=``) and two decode steps after each, in both packages."""
-    arch, n_layers, dtype = request.param
-    jcfg, tcfg = _pair_cfgs(arch, n_layers, dtype)
+    arch, n_layers, dtype, *overrides = request.param
+    jcfg, tcfg = _pair_cfgs(arch, n_layers, dtype, **(overrides[0] if overrides else {}))
     jm, tm = jax_build(jcfg), port_build(tcfg)
-    weights = _weights(tm, 3)
+    weights = as_stored(tm, _weights(tm, 3))
     jp, tp = jax.tree.map(jnp.asarray, weights), params_from_numpy(tcfg, weights, "cpu")
     tokens = _tokens(tcfg, (2, 13), 0)
     vis = _vision(tcfg, 2, 1)
@@ -383,11 +396,12 @@ class TestModelAgainstReference:
 
 
 class TestWithinPort:
-    @pytest.mark.parametrize("arch,n_layers", [(a, n) for a, n, _ in MODELS])
-    def test_decode_matches_forward(self, arch, n_layers):
+    @pytest.mark.parametrize("arch,n_layers,overrides", [(m[0], m[1], (m[3:] or ({},))[0]) for m in MODELS],
+                             ids=[f"{_model_id(m[0], (m[3:] or ({},))[0])}-{m[1]}" for m in MODELS])
+    def test_decode_matches_forward(self, arch, n_layers, overrides):
         """As tests/test_models.py holds the reference: decode after a prefill
         of t0 tokens gives the full forward's logits at each later position."""
-        cfg = dataclasses.replace(port_config(arch).reduced(), dtype="float32", n_layers=n_layers)
+        cfg = dataclasses.replace(port_config(arch).reduced(), dtype="float32", n_layers=n_layers, **overrides)
         m = port_build(cfg)
         params = params_from_numpy(cfg, _weights(m, 1), "cpu")
         tokens = torch.as_tensor(_tokens(cfg, (2, 12), 4))

@@ -81,10 +81,11 @@ class TestAttention:
             fa.flash_attention(q, torch.randn(1, 3, 8, 16), torch.randn(1, 3, 8, 16))  # 4 heads onto 3
 
     # which kernel the op launches on the card is a function of dtype and head
-    # width alone: bf16 at 64 or 128 on the tensor cores, every other width up to
-    # 256 on the float32 pipes (float32 there keeps the reference's 2e-5: no TF32)
+    # width alone: bf16 at 64, 112 or 128 on the tensor cores, every other width up
+    # to 256 on the float32 pipes (float32 there keeps the reference's 2e-5: no TF32)
     @pytest.mark.parametrize("dtype,D,kernel", [
         (torch.bfloat16, 64, "flash_attention_sm90"), (torch.bfloat16, 128, "flash_attention_sm90"),
+        (torch.bfloat16, 112, "flash_attention_sm90"), (torch.float32, 112, "flash_attention"),
         (torch.bfloat16, 16, "flash_attention"), (torch.bfloat16, 32, "flash_attention"),
         (torch.float32, 16, "flash_attention"), (torch.float32, 32, "flash_attention"),
         (torch.float32, 64, "flash_attention")])

@@ -3,24 +3,34 @@ transformer families (dense, vision, audio, MoE) at full width, on numpy
 weights that the PyTorch port regenerates from a seed.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_lm_ref.py [--check-port]
+        [--only kimi-k2-1t-a32b@1 ...]
 
 Entries, all at full width with ``dtype="float32"``, cut in depth so that the
 weights fit the host twice over: granite-3-8b with 2 of its 40 layers,
 llama-3.2-vision-11b with 5 of 40 (one group: 4 self layers and a cross
 layer), musicgen-large with 2 of 48 (4 codebooks), llama4-scout-17b-a16e with
-1 of 48 (16 experts, top-1).  For each:
+1 of 48 (16 experts, top-1), kimi-k2-1t-a32b with 1 of 61 and its experts cut
+from 384 to 16 (top-8 kept; ``EXPERTS``, stored as ``n_experts``): 3.17 B
+parameters, 12.7 GB in float32 (all 384 at one layer would be 19.4 B).  With
+``--only`` the named entries are remade and written into the existing file,
+whose other entries stay as they are.  For each:
 
-  * weights: ``repro_torch``'s ``Model.init_numpy(SEED)``, handed to the JAX
-    model as they are, except the vision cross layers' ``attn_gate`` and
-    ``mlp_gate``, which start at 0 (``tanh(0)`` would zero the cross path) and
-    are set to seeded values in [0.3, 0.9] (stored);
+  * weights: ``repro_torch``'s ``Model.init_numpy(SEED)``, each leaf rounded to
+    the dtype the port stores it in (kimi-k2's ``param_dtype`` is bf16: the
+    port's ``params_from_numpy`` rounds its matrices, while the reference keeps
+    the float32 arrays it is handed, so it is handed the rounded ones), and
+    the vision cross layers' ``attn_gate`` and ``mlp_gate``, which start at 0
+    (``tanh(0)`` would zero the cross path), set to seeded values in
+    [0.3, 0.9] (stored);
   * one prompt of 67 tokens ([67, 4] for the audio model), and for the vision
     model a seeded normal vision input [1, 1601, 1280] (its seed stored): the
     serving engine's zero stub would make the vision K/V zero;
   * the JAX model's prefill, then 8 greedy decode steps;
   * the same run six more times, each with one weight of every layer moved up
-    by one float32 ulp (``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``,
-    ``w_down``), teacher-forced with the first run's tokens: how far the
+    by one ulp of the dtype the port stores it in (``wq``, ``wk``, ``wv``,
+    ``wo``, ``w_gate``, ``w_down``; float32, or bf16 for kimi-k2, where a
+    float32 ulp would vanish in the port's rounding), teacher-forced with the
+    first run's tokens: how far the
     reference itself moves under rounding-sized changes (its "spread", the
     largest over the six).  With the reference's initializer (std over the
     second-last dim: k has std ~23 at d_model 4096) attention is close to a
@@ -56,6 +66,7 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.models import transformer as jax_T
@@ -63,12 +74,14 @@ from repro.models.layers import rms_norm
 from repro.models.model import _precast
 from repro.models.model import build_model as jax_model
 from repro_torch.configs import get_config as port_config
+from repro_torch.models import defs as D
 from repro_torch.models.model import build_model as port_model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "torch_lm_ref.npz"
 ENTRIES = (("granite-3-8b", 2), ("llama-3.2-vision-11b", 5), ("musicgen-large", 2),
-           ("llama4-scout-17b-a16e", 1))  # (name, layers kept)
+           ("llama4-scout-17b-a16e", 1), ("kimi-k2-1t-a32b", 1))  # (name, layers kept)
+EXPERTS = {"kimi-k2-1t-a32b": 16}  # experts kept where an entry cuts them (top-k kept)
 SEED = 0
 PROMPT_SEED = 1
 VISION_SEED = 2
@@ -77,6 +90,38 @@ PROMPT_LEN = 67
 DECODE_STEPS = 8
 TOP = 64
 NUDGED = ("wq", "wk", "wv", "wo", "w_gate", "w_down")  # layer weights moved by one ulp, one run each
+
+
+def entry_config(get_config, name: str, n_layers: int, n_experts: int | None = None):
+    """An entry's config from ``get_config`` (either package's): float32,
+    ``n_layers`` deep, ``n_experts`` experts where given."""
+    cfg = get_config(name)
+    kw = dict(dtype="float32", n_layers=n_layers)
+    if n_experts:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    return dataclasses.replace(cfg, **kw)
+
+
+def as_stored(model, w: dict) -> dict:
+    """``w`` with every leaf that the port stores in a reduced dtype rounded to
+    it in place, as it rounds them (still float32 arrays)."""
+    for path, d in D.leaves(model.param_defs()):
+        if d.dtype != torch.float32:
+            t = torch.from_numpy(functools.reduce(lambda sub, k: sub[k], path, w))
+            t.copy_(t.to(d.dtype))
+    return w
+
+
+def ulp_up(x, dtype: torch.dtype):
+    """``x`` moved up by one ulp of ``dtype`` (float32, or bf16 for a float32
+    array of bf16 values: the next bf16 toward +inf)."""
+    if dtype == torch.float32:
+        return jnp.nextafter(x, jnp.float32(np.inf))
+    assert dtype == torch.bfloat16, dtype
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+    step = jnp.uint32(1 << 16)  # one bf16 ulp in a float32's bits
+    bits = jnp.where(x > 0, bits + step, jnp.where(x < 0, bits - step, step))
+    return jax.lax.bitcast_convert_type(bits, jnp.float32)
 
 
 def gates(n_cross: int) -> tuple[np.ndarray, np.ndarray]:
@@ -144,8 +189,8 @@ def router_margin(cfg, params, prompt: np.ndarray) -> float:
 
 
 def entry_weights(model, cfg, seed: int) -> dict:
-    """``init_numpy(seed)`` with the cross gates set (vision)."""
-    w = model.init_numpy(seed)
+    """``init_numpy(seed)`` as the port stores it, with the cross gates set (vision)."""
+    w = as_stored(model, model.init_numpy(seed))
     if cfg.vision:
         n_cross = cfg.n_layers // cfg.vision.cross_attn_every
         w["cross_layers"]["attn_gate"], w["cross_layers"]["mlp_gate"] = gates(n_cross)
@@ -159,9 +204,11 @@ def _to_jax(tree: dict) -> dict:
 
 
 def reference_run(name: str, n_layers: int) -> dict:
-    port_cfg = dataclasses.replace(port_config(name), dtype="float32", n_layers=n_layers)
-    cfg = dataclasses.replace(jax_config(name), dtype="float32", n_layers=n_layers)
+    n_experts = EXPERTS.get(name)
+    port_cfg = entry_config(port_config, name, n_layers, n_experts)
+    cfg = entry_config(jax_config, name, n_layers, n_experts)
     model = jax_model(cfg)
+    stored = {path[-1]: d.dtype for path, d in D.leaves(port_model(port_cfg).param_defs()["layers"])}
     params = _to_jax(entry_weights(port_model(port_cfg), port_cfg, SEED))
     gc.collect()
     prompt = prompt_for(cfg)
@@ -180,10 +227,12 @@ def reference_run(name: str, n_layers: int) -> dict:
         out[f"{key}/mlp_gate"] = np.asarray(params["cross_layers"]["mlp_gate"])
     if cfg.moe:
         out[f"{key}/router_margin"] = np.float64(router_margin(cfg, params, prompt))
+    if n_experts:
+        out[f"{key}/n_experts"] = np.int64(n_experts)
     spread = []
     for leaf in NUDGED:
         kept = params["layers"][leaf]
-        params["layers"][leaf] = jnp.nextafter(kept, jnp.float32(np.inf))
+        params["layers"][leaf] = ulp_up(kept, stored[leaf])
         moved = _steps(model, params, prompt, vision, forced=tokens)
         params["layers"][leaf] = kept
         spread.append([rel_dev(m, *t) for m, t in zip(moved, tops)])
@@ -194,15 +243,14 @@ def reference_run(name: str, n_layers: int) -> dict:
     return out
 
 
-def check_port(ref) -> None:
-    """The port on the CPU, float32, against the fixture."""
-    import torch
-
+def check_port(ref, keys: list[str]) -> None:
+    """The port on the CPU, float32, against the fixture's entries ``keys``."""
     from repro_torch.models.model import params_from_numpy
 
-    for key in [str(k) for k in ref["entries"]]:
+    for key in keys:
         name, n_layers = str(ref[f"{key}/name"]), int(ref[f"{key}/n_layers"])
-        cfg = dataclasses.replace(port_config(name), dtype="float32", n_layers=n_layers)
+        n_experts = int(ref[f"{key}/n_experts"]) if f"{key}/n_experts" in ref else None
+        cfg = entry_config(port_config, name, n_layers, n_experts)
         model = port_model(cfg)
         w = model.init_numpy(int(ref[f"{key}/seed"]))
         vision = None
@@ -236,9 +284,19 @@ def check_port(ref) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check-port", action="store_true", help="then hold the port on the CPU against the file")
+    ap.add_argument("--only", nargs="+", metavar="NAME@LAYERS", choices=[f"{n}@{k}" for n, k in ENTRIES],
+                    help="remake these entries alone, keeping the file's others")
     args = ap.parse_args()
-    out = {"entries": np.asarray([f"{n}@{layers}" for n, layers in ENTRIES])}
+    keys = [f"{n}@{layers}" for n, layers in ENTRIES]
+    out = {"entries": np.asarray(keys)}
+    if args.only:
+        with np.load(OUT) as old:
+            kept = [str(k) for k in old["entries"] if str(k) not in args.only]
+            out.update({k: old[k] for k in old.files if k != "entries" and k.split("/")[0] in kept})
+        out["entries"] = np.asarray([k for k in keys if k in kept or k in args.only])
     for name, n_layers in ENTRIES:
+        if args.only and f"{name}@{n_layers}" not in args.only:
+            continue
         t0 = time.perf_counter()
         out.update(reference_run(name, n_layers))
         gc.collect()
@@ -247,7 +305,7 @@ def main() -> None:
     np.savez_compressed(OUT, **out)
     print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
     if args.check_port:
-        check_port(np.load(OUT))
+        check_port(np.load(OUT), args.only or keys)
 
 
 if __name__ == "__main__":
