@@ -283,36 +283,38 @@ def specialize(
 
     ``type_weights`` overrides the spec's hard memory-technology selection
     with soft weights [N_MEM, 3] (used by DOpt2's differentiable technology
-    search); default is the one-hot encoding of ``spec.mem_type``.
+    search); default is the one-hot encoding of ``spec.mem_type``.  Traced,
+    span ``dgen.specialize``.
     """
     dev = tech.node.device
-    one_hot, mem_mask, comp_mask = _spec_arrays(spec, str(dev))
-    tw = one_hot if type_weights is None else type_weights
+    with instrument.span("dgen.specialize", dev):
+        one_hot, mem_mask, comp_mask = _spec_arrays(spec, str(dev))
+        tw = one_hot if type_weights is None else type_weights
 
-    comp = _comp_metrics(tech, arch)
-    total_macs = torch.sum(comp["flops_per_cycle"], -1) / 2.0
-    mem = _mem_metrics(tech, arch, tw, max_const(total_macs / 8.0, 1.0))
+        comp = _comp_metrics(tech, arch)
+        total_macs = torch.sum(comp["flops_per_cycle"], -1) / 2.0
+        mem = _mem_metrics(tech, arch, tw, max_const(total_macs / 8.0, 1.0))
 
-    # timing feasibility: the SoC clock cannot beat the slowest critical path
-    slowest = torch.amax(torch.where(comp_mask > 0, comp["crit_path"], 0.0), -1)
-    f_max = const(slowest, 1.0) / slowest
-    frequency = torch.minimum(arch.frequency, f_max)
+        # timing feasibility: the SoC clock cannot beat the slowest critical path
+        slowest = torch.amax(torch.where(comp_mask > 0, comp["crit_path"], 0.0), -1)
+        f_max = const(slowest, 1.0) / slowest
+        frequency = torch.minimum(arch.frequency, f_max)
 
-    return ConcreteHW(
-        read_latency=mem["read_latency"],
-        write_latency=mem["write_latency"],
-        read_energy_pb=mem["read_energy_pb"],
-        write_energy_pb=mem["write_energy_pb"],
-        mem_leakage=mem["mem_leakage"] * mem_mask,
-        mem_area=mem["mem_area"] * mem_mask,
-        mem_bw=mem["mem_bw"],
-        capacity=mem["capacity"],
-        flops_per_cycle=comp["flops_per_cycle"] * comp_mask,
-        energy_per_flop=comp["energy_per_flop"],
-        comp_leakage=comp["comp_leakage"] * comp_mask,
-        comp_area=comp["comp_area"] * comp_mask,
-        sys_x=arch.sys_arr_x,
-        sys_y=arch.sys_arr_y,
-        vect_width=arch.vect_width,
-        frequency=frequency,
-    )
+        return ConcreteHW(
+            read_latency=mem["read_latency"],
+            write_latency=mem["write_latency"],
+            read_energy_pb=mem["read_energy_pb"],
+            write_energy_pb=mem["write_energy_pb"],
+            mem_leakage=mem["mem_leakage"] * mem_mask,
+            mem_area=mem["mem_area"] * mem_mask,
+            mem_bw=mem["mem_bw"],
+            capacity=mem["capacity"],
+            flops_per_cycle=comp["flops_per_cycle"] * comp_mask,
+            energy_per_flop=comp["energy_per_flop"],
+            comp_leakage=comp["comp_leakage"] * comp_mask,
+            comp_area=comp["comp_area"] * comp_mask,
+            sys_x=arch.sys_arr_x,
+            sys_y=arch.sys_arr_y,
+            vect_width=arch.vect_width,
+            frequency=frequency,
+        )

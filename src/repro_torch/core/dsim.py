@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import instrument
 from repro_torch.core.dgen import ConcreteHW, specialize
 from repro_torch.core.graph import Graph
 from repro_torch.core.mapper import MapperCfg, MapState, map_workload, map_workload_breakdown
@@ -79,9 +80,12 @@ def simulate(
     mcfg: MapperCfg = MapperCfg(),
     type_weights: torch.Tensor | None = None,
 ) -> PerfEstimate:
-    """End-to-end differentiable: params -> CH -> mapping -> estimates."""
-    chw = specialize(tech, arch, spec, type_weights)
-    return simulate_chw(chw, g, mcfg)
+    """End-to-end differentiable: params -> CH -> mapping -> estimates.
+    Traced, span ``dsim.simulate``, holding ``dgen.specialize`` and
+    ``mapper.map``."""
+    with instrument.span("dsim.simulate", tech.node.device):
+        chw = specialize(tech, arch, spec, type_weights)
+        return simulate_chw(chw, g, mcfg)
 
 
 def _per_vertex(x: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:

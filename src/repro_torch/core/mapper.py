@@ -45,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import instrument
 from repro_torch.core.dgen import ConcreteHW
 from repro_torch.core.graph import Graph
 from repro_torch.core.params import COMP_IDX, MEM_IDX, TensorTree, const, max_const
@@ -287,9 +288,13 @@ def _carry_prefixes(chw: ConcreteHW, cfg: MapperCfg, iv: dict) -> tuple[torch.Te
 
 
 def _map_workload_assoc(chw: ConcreteHW, g: Graph, cfg: MapperCfg) -> MapState:
-    iv = _vertex_intrinsics(chw, g, cfg)
-    occ_prev, bw_prev = _carry_prefixes(chw, cfg, iv)
-    return _vertex_finish(chw, g, cfg, iv, occ_prev, bw_prev)
+    dev = chw.frequency.device
+    with instrument.span("mapper.intrinsics", dev):
+        iv = _vertex_intrinsics(chw, g, cfg)
+    with instrument.span("mapper.carries", dev):
+        occ_prev, bw_prev = _carry_prefixes(chw, cfg, iv)
+    with instrument.span("mapper.finish", dev):
+        return _vertex_finish(chw, g, cfg, iv, occ_prev, bw_prev)
 
 
 def map_workload_breakdown(chw: ConcreteHW, g: Graph, cfg: MapperCfg = MapperCfg()) -> dict:
@@ -420,12 +425,13 @@ def map_workload_scan(chw: ConcreteHW, g: Graph, cfg: MapperCfg = MapperCfg()) -
 
 def map_workload(chw: ConcreteHW, g: Graph, cfg: MapperCfg = MapperCfg()) -> MapState:
     """MAPWORKLOAD (paper Alg. 1): map the vertex list onto CH, tiling /
-    streaming / prefetching per vertex.  Dispatches on ``cfg.scan_impl``."""
+    streaming / prefetching per vertex.  Dispatches on ``cfg.scan_impl``.
+    Traced, span ``mapper.map``; on the prefix-scan path it holds
+    ``mapper.intrinsics``, ``mapper.carries`` and ``mapper.finish``."""
     impl = cfg.scan_impl
     if impl == "auto":
         impl = "ref" if g.n_vertices < _ASSOC_MIN_V else "assoc"
-    if impl == "ref":
-        return map_workload_scan(chw, g, cfg)
-    if impl in ("assoc", "pallas"):
-        return _map_workload_assoc(chw, g, cfg)
-    raise ValueError(f"unknown MapperCfg.scan_impl {cfg.scan_impl!r}")
+    if impl not in ("ref", "assoc", "pallas"):
+        raise ValueError(f"unknown MapperCfg.scan_impl {cfg.scan_impl!r}")
+    with instrument.span("mapper.map", chw.frequency.device):
+        return map_workload_scan(chw, g, cfg) if impl == "ref" else _map_workload_assoc(chw, g, cfg)

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import instrument
 from repro_torch.core.dhdl import load_arch, serialize_arch
 from repro_torch.core.dopt import AdamState, adam_update, from_log, to_log
 from repro_torch.core.dsim import (
@@ -247,35 +248,41 @@ def _population_step(state, mixes, gstack: Graph, lr, penalty_w, spec, mcfg, opt
     final front.  Returns (state', rows [P, 5])."""
     tech_z, arch_z, tstate, astate = state
     weights, area_budget, power_budget = mixes
+    dev = tech_z.leaves()[0].device
     tz = tech_z.map(lambda x: x.detach().requires_grad_(True))
     az = arch_z.map(lambda x: x.detach().requires_grad_(True))
     with torch.enable_grad():
-        val, perfs = mixed_log_objective(
-            _against_workloads(from_log(tz)), _against_workloads(from_log(az)), gstack, weights, area_budget,
-            power_budget, penalty_w, spec, mcfg,
-        )
+        with instrument.span("popsim.forward", dev):
+            val, perfs = mixed_log_objective(
+                _against_workloads(from_log(tz)), _against_workloads(from_log(az)), gstack, weights, area_budget,
+                power_budget, penalty_w, spec, mcfg,
+            )
+            loss = val.sum()
         wrt = tz.leaves() + az.leaves()
-        grads = torch.autograd.grad(val.sum(), wrt, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
-    val = val.detach()
-    ok = torch.isfinite(val)
-    for g in grads:
-        ok = ok & torch.isfinite(g).reshape(g.shape[0], -1).all(1)
-    it = iter(grads)
-    g_t, g_a = tech_z.map(lambda _: next(it)), arch_z.map(lambda _: next(it))
+        with instrument.span("popsim.backward", dev):
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    with instrument.span("popsim.update", dev):
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
+        val = val.detach()
+        ok = torch.isfinite(val)
+        for g in grads:
+            ok = ok & torch.isfinite(g).reshape(g.shape[0], -1).all(1)
+        it = iter(grads)
+        g_t, g_a = tech_z.map(lambda _: next(it)), arch_z.map(lambda _: next(it))
 
-    if opt_over in ("tech", "both"):
-        upd, tstate = adam_update(g_t, tstate, lr)
-        tech_z = tech_z.map(lambda p, u: p + u, upd)
-    if opt_over in ("arch", "both"):
-        upd, astate = adam_update(g_a, astate, lr)
-        arch_z = arch_z.map(lambda p, u: p + u, upd)
-    tech_z = clamp_params(tech_z, *log_bounds[0])
-    arch_z = clamp_params(arch_z, *log_bounds[1])
-    cand = (tech_z, arch_z, tstate, astate)
-    kept = [torch.where(per_member(ok, new), new, old) for new, old in zip(_state_leaves(cand), _state_leaves(state))]
-    # per-epoch row: [scalarized value, log time, log energy, log area, log edp]
-    row = torch.cat([val[:, None], stacked_log_metrics(perfs).detach()], -1)
+        if opt_over in ("tech", "both"):
+            upd, tstate = adam_update(g_t, tstate, lr)
+            tech_z = tech_z.map(lambda p, u: p + u, upd)
+        if opt_over in ("arch", "both"):
+            upd, astate = adam_update(g_a, astate, lr)
+            arch_z = arch_z.map(lambda p, u: p + u, upd)
+        tech_z = clamp_params(tech_z, *log_bounds[0])
+        arch_z = clamp_params(arch_z, *log_bounds[1])
+        cand = (tech_z, arch_z, tstate, astate)
+        kept = [torch.where(per_member(ok, new), new, old)
+                for new, old in zip(_state_leaves(cand), _state_leaves(state))]
+        # per-epoch row: [scalarized value, log time, log energy, log area, log edp]
+        row = torch.cat([val[:, None], stacked_log_metrics(perfs).detach()], -1)
     return _unflatten_state(state, kept), row
 
 
@@ -301,7 +308,9 @@ def _epochs(state, mixes, gstack: Graph, lr, pw_schedule, spec, mcfg, opt_over):
                   tuple(to_log(b) for b in ArchParams.bounds(dev)))
     rows = []
     for i in range(pw_schedule.shape[0]):
-        state, row = _population_step(state, mixes, gstack, lr, pw_schedule[i], spec, mcfg, opt_over, log_bounds)
+        with instrument.span("popsim.epoch", dev):
+            state, row = _population_step(state, mixes, gstack, lr, pw_schedule[i], spec, mcfg, opt_over,
+                                          log_bounds)
         rows.append(row)
     return state, (torch.stack(rows) if rows else torch.zeros((0, _members(state[0]), 5), device=dev))
 
@@ -335,28 +344,33 @@ def population_chunk(
     Returns ``(state', metrics)``: ``metrics`` is the [n, P, 5] float32
     numpy history, per-epoch rows ``[scalarized value, log time, log energy,
     log area, log edp]``, copied to the host once.
+
+    Traced, the call is span ``popsim.chunk``: a ``popsim.epoch`` each epoch,
+    then ``popsim.readback`` (:mod:`repro_torch.instrument`).
     """
-    if opt_over not in ("tech", "arch", "both"):
-        # the population engine has no DOpt2 type-logits state; an unknown
-        # opt_over would otherwise run a full descent that never moves
-        raise ValueError(
-            f"opt_over={opt_over!r} not supported by the population engine "
-            "(use 'tech', 'arch' or 'both'; DOpt2 'both+types' is optimize()-only)"
-        )
-    if mesh is not None and mesh.size() > 1:
-        names = tuple(mesh.mesh_dim_names)
-        if axis not in names:
-            raise ValueError(f"mesh has axes {names}, no {axis!r} axis")
-        p, shards = _members(state[0]), mesh.size(names.index(axis))
-        if p % shards != 0:
+    with instrument.span("popsim.chunk", state[0].leaves()[0].device):
+        if opt_over not in ("tech", "arch", "both"):
+            # the population engine has no DOpt2 type-logits state; an unknown
+            # opt_over would otherwise run a full descent that never moves
             raise ValueError(
-                f"mesh axis {axis!r}={shards} must divide the population (got P={p}) — "
-                f"pad the population to a multiple of {shards}"
+                f"opt_over={opt_over!r} not supported by the population engine "
+                "(use 'tech', 'arch' or 'both'; DOpt2 'both+types' is optimize()-only)"
             )
-        return population_chunk_sharded(state, mixes, gstack, lr, pw_schedule, spec=spec, mcfg=mcfg,
-                                        opt_over=opt_over, mesh=mesh, axis=axis)
-    state, rows = _epochs(state, mixes, gstack, lr, pw_schedule, spec, mcfg, opt_over)
-    return state, rows.cpu().numpy()
+        if mesh is not None and mesh.size() > 1:
+            names = tuple(mesh.mesh_dim_names)
+            if axis not in names:
+                raise ValueError(f"mesh has axes {names}, no {axis!r} axis")
+            p, shards = _members(state[0]), mesh.size(names.index(axis))
+            if p % shards != 0:
+                raise ValueError(
+                    f"mesh axis {axis!r}={shards} must divide the population (got P={p}) — "
+                    f"pad the population to a multiple of {shards}"
+                )
+            return population_chunk_sharded(state, mixes, gstack, lr, pw_schedule, spec=spec, mcfg=mcfg,
+                                            opt_over=opt_over, mesh=mesh, axis=axis)
+        state, rows = _epochs(state, mixes, gstack, lr, pw_schedule, spec, mcfg, opt_over)
+        with instrument.span("popsim.readback", rows.device):
+            return state, rows.cpu().numpy()
 
 
 def population_chunk_sharded(
@@ -402,7 +416,8 @@ def population_chunk_sharded(
 
     out = local_map(body, out_placements=(members,) * n + (history,), in_placements=(members,) * (n + 3),
                     device_mesh=mesh)(*leaves, *mixes)
-    return _unflatten_state(state, list(out[:n])), out[n].full_tensor().cpu().numpy()
+    with instrument.span("popsim.readback", dev):
+        return _unflatten_state(state, list(out[:n])), out[n].full_tensor().cpu().numpy()
 
 
 def population_log_metrics(
@@ -414,8 +429,9 @@ def population_log_metrics(
 ):
     """Final-population evaluation: per-member ``[P, 4]`` log-metric vectors
     plus the worst-case-over-workloads raw area [P] and power [P] the budget
-    feasibility check is defined on (matching dsim.budget_penalty)."""
-    with torch.no_grad():
+    feasibility check is defined on (matching dsim.budget_penalty).  Traced,
+    the call is span ``popsim.log_metrics``, holding ``dsim.simulate``."""
+    with torch.no_grad(), instrument.span("popsim.log_metrics", tech.node.device):
         perfs = simulate_stacked(_against_workloads(tech), _against_workloads(arch), gstack, spec, mcfg)
         return stacked_log_metrics(perfs), torch.amax(perfs.area, -1), torch.amax(perfs.power, -1)
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import instrument
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import (affine_scan_reference, mapper_carries_backward_reference,
                                      mapper_carries_reference, selective_scan_bwd, selective_scan_states)
@@ -256,7 +257,8 @@ def mapper_carries(alloc: torch.Tensor, bw_x: torch.Tensor, cap: torch.Tensor, o
 
 MAX_STATE = 16  # csrc/selective_scan.cu holds at most 16 states a channel (2 a thread, in 8 warps)
 CHUNK = 48  # csrc/selective_scan.cu's kChunk: the entering states are those of its chunks
-BACKWARD_RANGE = "repro_torch::selective_scan_backward"  # the backward's torch.profiler range
+BACKWARD_SPAN = "selective_scan_backward"  # the backward's instrument.span
+BACKWARD_RANGE = instrument.RANGE_PREFIX + BACKWARD_SPAN  # ... and its torch.profiler range
 
 
 def _check_selective(u, dt, A, Bm, Cm, D) -> None:
@@ -347,7 +349,7 @@ def selective_scan_backward_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
                                g_state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                                                       torch.Tensor, torch.Tensor, torch.Tensor]:
     """(du, ddt, dA, dB, dC, dD): ``ref.selective_scan_bwd``, plain PyTorch on every device."""
-    with torch.profiler.record_function(BACKWARD_RANGE):
+    with instrument.span(BACKWARD_SPAN, u.device):
         return tuple(g.contiguous() for g in selective_scan_bwd(u, dt, A, Bm, Cm, D, entering, g_y, g_state,
                                                                 chunk=CHUNK))
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import instrument
 from repro_torch.kernels import runtime
 from repro_torch.kernels.ref import ssd_scan, ssd_scan_bwd, ssd_scan_phases
 
@@ -34,7 +35,8 @@ MOST_HEADS = 4  # heads a block of the outputs kernel takes at most
 # blocks of the outputs kernel the H100 holds at once at N = P = 64: its shared
 # memory (~70 KB) and registers (165 a thread in bf16) allow 3 on each of 132 SMs
 RESIDENT_BLOCKS = 3 * 132
-BACKWARD_RANGE = "repro_torch::ssd_chunk_scan_backward"  # the backward's torch.profiler range
+BACKWARD_SPAN = "ssd_chunk_scan_backward"  # the backward's instrument.span
+BACKWARD_RANGE = instrument.RANGE_PREFIX + BACKWARD_SPAN  # ... and its torch.profiler range
 
 
 def _padded(n: int) -> int:
@@ -166,7 +168,7 @@ def ssd_chunk_scan_backward_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
                                g_state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                                                       torch.Tensor, torch.Tensor]:
     """(dx, ddt, dA, dB, dC): ``ref.ssd_scan_bwd``, plain PyTorch on every device."""
-    with torch.profiler.record_function(BACKWARD_RANGE):
+    with instrument.span(BACKWARD_SPAN, x.device):
         return tuple(g.contiguous() for g in ssd_scan_bwd(x, dt, A, Bm, Cm, entering, g_y, g_state, chunk=CHUNK))
 
 

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import instrument
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.sharding import einsum, is_dtensor, reshape, unsplit
 
@@ -320,8 +321,8 @@ class _ChunkedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out = ctx.saved_tensors
-        # a named range, so that a profile can tell this pass's kernels apart
-        with torch.profiler.record_function("repro_torch::chunked_attention_backward"):
+        # a span, so that a profile can tell this pass's kernels apart
+        with instrument.span("chunked_attention_backward", q.device):
             c = ctx.cfg
             dq, dk, dv = chunked_attention_backward_op(q, k, v, out, do.contiguous(), c["causal"], c["scale"],
                                                        c["block_q"], c["block_k"])
