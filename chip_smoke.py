@@ -38,7 +38,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    states against its plain version's, each backward's time and memory, and
    K5's time with and without the entering-state output, in turns;
 4. the simulator path, with the launch counts set to 0 just before and read
-   just after:
+   just after (K1, K2 and, on the no-gradient calls, the mapper's two kernels
+   around K1 must run on it; on the DSE, session and design paths as well):
    a. simulate the 16 workloads of results/bench/sim_speed.json at the default
       design, each padded to its vertex bucket (next power of two, >= 32),
       with the default MapperCfg(), and hold cycles against ``cycles_dsim``;
@@ -256,7 +257,7 @@ EXP_FP32_OPS = 14
 
 # seeds of the generators the model kernels draw their checks' inputs from,
 # one a kernel, so that no kernel's inputs depend on another's case list
-K1_SEED, K3_SEED, K4_SEED, K5_SEED = 1, 3, 4, 5
+K1_SEED, K3_SEED, K4_SEED, K5_SEED, MAPPER_SEED = 1, 3, 4, 5, 6
 K4_DRAWS = 8  # float32 draws at 4,096 steps on which K4 is held to the float64 recurrence
 
 SERVE_MODELS = ("zamba2-1.2b", "falcon-mamba-7b", "granite-3-8b", "llama-3.2-vision-11b", "musicgen-large",
@@ -600,7 +601,7 @@ def phase_kernels(device) -> dict:
             (k2["ms"], k2["ms_method"]), (k2["plain_ms"], _) = k2_ms_by_P[P], device_ms(plain, 1)
     k2["ms_by_P"] = {P: ms for P, (ms, _) in k2_ms_by_P.items()}
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
-    return {"affine_scan": k1, **carries_records(device), "popsim": k2}
+    return {"affine_scan": k1, **carries_records(device), **mapper_records(device), "popsim": k2}
 
 
 # shapes the main paths give K1's fused kernels: [1, bucket] for each
@@ -701,6 +702,101 @@ def carries_records(device) -> dict:
                          max_abs_err=err["forward" if name == "mapper_carries" else "backward"])
         r["ms_by_shape"], r["bound_ms_by_shape"] = by_shape, bound_by_shape
         rec[name] = r
+    return rec
+
+
+# the mapper's kernels around K1 at the main path's shapes: the sweep's
+# 65,536 designs [P, 1] against the classic stack [11, 256], and 16,384
+# against the LM stack [5, 1024] (the descent's population); the records are
+# the sweep's
+MAPPER_SHAPES = (("classic", 65536), ("lm_stack", 16384))
+# float operations a real (row, vertex), counted by hand from csrc/mapper.cu as
+# it executes them (each add, multiply, division, ceil, max/min and compare
+# once; a select not): the carry-free terms 47, the systolic wave model 22 more
+# where the vertex has systolic work; the finish recomputes them and adds the
+# activity flag, the gates, exposed time, cycles and the sums, 47.  A padding
+# vertex takes its design's precomputed terms: none counted
+MAPPER_OPS_TERMS, MAPPER_OPS_WAVE, MAPPER_OPS_FINISH = 47, 22, 47
+
+
+def mapper_records(device) -> dict:
+    """The mapper's kernels around K1 (``csrc/mapper.cu``) called through
+    their ops at MAPPER_SHAPES, against the torch stages they replace on the
+    same designs (each field of the default design scaled by exp(0.5 N(0, 1))):
+    ``mapper_intrinsics``' bw_x equal to ``_vertex_intrinsics``' bit for bit;
+    ``mapper_finish``'s sums and bw_util within rtol 1e-5 of
+    ``_vertex_finish``'s on the same carries (its sums over V run in another
+    order), n_tiles equal below 2^24.  Each kernel and each stage timed at
+    both shapes."""
+    import torch
+
+    from repro_torch.core import ArchParams, Graph, MapperCfg, TechParams, mapper, specialize
+    from repro_torch.kernels import mapper_kernel
+    from repro_torch.workloads import get_workload, lm_cell
+
+    stacks = {"classic": lambda: Graph.stack([get_workload(n, device=device).pad_to(256) for n in CLASSIC]),
+              "lm_stack": lambda: Graph.stack([lm_cell(a, s, device=device).pad_to(1024) for a, s in LM])}
+    chw0 = specialize(TechParams.default(device), ArchParams.default(device))
+    cfg = MapperCfg()
+    gen = torch.Generator(device.type).manual_seed(MAPPER_SEED)
+    names = {"mapper_intrinsics": "mapper_kernel<false>", "mapper_finish": "mapper_kernel<true>"}
+    rec = {name: dict(ms_by_shape={}, bound_ms_by_shape={}, plain_ms_by_shape={}, max_abs_err=0.0,
+                      max_rel_err=0.0) for name in names}
+    with torch.no_grad():
+        for stack, P in MAPPER_SHAPES:
+            g = stacks[stack]()
+            chw = type(chw0)(**{f.name: getattr(chw0, f.name) * torch.exp(0.5 * torch.randn(
+                (P, 1, *getattr(chw0, f.name).shape), generator=gen, device=device)) for f in dataclasses.fields(chw0)})
+            h = mapper._hw(chw)
+            fz = mapper.pack(chw, g)
+            R, V = math.prod(fz.lead), g.n_vertices
+            check(fz.lead == (P, g.n_comp.shape[0]), f"mapper kernels: {stack} packed as {fz.lead}")
+            intr = lambda: mapper_kernel.mapper_intrinsics_op(fz.graph, fz.designs, fz.span, cfg.headroom)  # noqa: E731
+            plain_intr = lambda: mapper._vertex_intrinsics(h, g, cfg)  # noqa: E731
+            bw_x, iv = intr(), plain_intr()
+            check(torch.equal(bw_x, iv["bw_x"].reshape(R, V)),
+                  f"mapper_intrinsics [{R},{V}]: bw_x differs from _vertex_intrinsics' by "
+                  f"{float((bw_x - iv['bw_x'].reshape(R, V)).abs().max())}")
+            occ, bwp = mapper._carry_prefixes(chw, cfg, iv)
+            occ_r, bwp_r = occ.reshape(R, V), bwp.reshape(R, V)
+            fin = lambda: mapper_kernel.mapper_finish_op(fz.graph, fz.designs, occ_r, bwp_r, fz.span,  # noqa: E731
+                                                         cfg.headroom, cfg.prefetch, cfg.streaming)
+            plain_fin = lambda: mapper._vertex_finish(h, g, cfg, iv, occ, bwp)  # noqa: E731
+            (sums, bw_util), want = fin(), plain_fin()
+            w_sums = torch.stack([getattr(want, f).reshape(R) for f in mapper_kernel.SUMS])
+            for what, got, w in (("sums", sums, w_sums), ("bw_util", bw_util, want.bw_util.reshape(R, 3))):
+                e = (got - w).abs()
+                check(bool(torch.isfinite(got).all()) and bool(torch.all(e <= 1e-5 * w.abs())),
+                      f"mapper_finish [{R},{V}]: {what} off the torch stage's beyond rtol 1e-5 "
+                      f"(max abs {float(e.max())})")
+                rec["mapper_finish"]["max_abs_err"] = max(rec["mapper_finish"]["max_abs_err"], float(e.max()))
+                rel = float((e / w.abs().clamp_min(1e-30)).max())
+                rec["mapper_finish"]["max_rel_err"] = max(rec["mapper_finish"]["max_rel_err"], rel)
+            tiles, w_tiles = sums[mapper_kernel.SUMS.index("n_tiles")], w_sums[mapper_kernel.SUMS.index("n_tiles")]
+            check(torch.equal(tiles[w_tiles < 2.0 ** 24], w_tiles[w_tiles < 2.0 ** 24]),
+                  f"mapper_finish [{R},{V}]: n_tiles differs from the torch stage's")
+            print(f"  mapper_intrinsics [{R},{V}] ({stack}, P = {P}): bw_x equal to the torch stage's bit for bit; "
+                  f"mapper_finish: sums and bw_util within rtol 1e-5 (largest relative gap "
+                  f"{rec['mapper_finish']['max_rel_err']:.3g}), n_tiles equal")
+            active = (g.n_comp.sum(-1) + g.n_read.sum(-1) + g.n_write.sum(-1) + g.n_alloc.sum(-1)) > 0
+            n_real, n_sys = int(active.sum()), int((g.n_comp[..., 0] > 0).sum())
+            ops_terms = P * (n_real * MAPPER_OPS_TERMS + n_sys * MAPPER_OPS_WAVE)
+            packed = 4 * (fz.graph.numel() + fz.designs.numel())
+            # intrinsics: the packed arrays read, bw_x written; finish: the carries read, [5, R] and [R, 3] written
+            size = {"mapper_intrinsics": packed + 4 * R * V,
+                    "mapper_finish": packed + 2 * 4 * R * V + 4 * R * (len(mapper_kernel.SUMS) + 3)}
+            ops = {"mapper_intrinsics": ops_terms, "mapper_finish": ops_terms + P * n_real * MAPPER_OPS_FINISH}
+            for name, kern, plain in (("mapper_intrinsics", intr, plain_intr), ("mapper_finish", fin, plain_fin)):
+                r, key = rec[name], f"{R}x{V}"
+                ms, method = device_ms(kern, 20, names[name])
+                plain_ms = device_ms(plain, 3)[0]
+                r["ms_by_shape"][key], r["plain_ms_by_shape"][key] = ms, plain_ms
+                r["bound_ms_by_shape"][key] = max(size[name] / HBM_BYTES_PER_S, ops[name] / FP32_OPS_PER_S) * 1e3
+                if stack == "classic":
+                    r.update(bytes=size[name], ops=ops[name], ms=ms, ms_method=method, plain_ms=plain_ms)
+            del g, chw, h, fz, bw_x, iv, occ, bwp, occ_r, bwp_r, sums, bw_util, want, w_sums
+            gc.collect()
+            torch.cuda.empty_cache()
     return rec
 
 
@@ -2035,7 +2131,7 @@ def phase_affine_scan(device) -> None:
 
     gs = Graph.stack([lm_cell(a, s, device=device).pad_to(1024) for a, s in LM])
     chw = specialize(TechParams.default(device), ArchParams.default(device))
-    iv = mapper._vertex_intrinsics(chw, gs, mapper.MapperCfg())
+    iv = mapper._vertex_intrinsics(mapper._hw(chw), gs, mapper.MapperCfg())
     x = (mapper._BW_GAIN * iv["bw_x"]).detach().requires_grad_(True)
     ema = kernels.affine_scan(mapper._BW_DECAY, x)
     ema.sum().backward()
@@ -3575,10 +3671,12 @@ def phase_mesh(device, dryruns: dict) -> dict:
     return counts
 
 
-SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim")
-DSE_KERNELS = ("mapper_carries", "mapper_carries_backward")
-SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward")
-DESIGN_KERNELS = ("mapper_carries", "mapper_carries_backward")
+# the mapper's kernels around K1 run on every no-gradient call of map_workload
+MAPPER_KERNELS = ("mapper_intrinsics", "mapper_finish")
+SIM_KERNELS = ("mapper_carries", "mapper_carries_backward", "popsim", *MAPPER_KERNELS)
+DSE_KERNELS = ("mapper_carries", "mapper_carries_backward", *MAPPER_KERNELS)
+SESSION_KERNELS = ("mapper_carries", "mapper_carries_backward", *MAPPER_KERNELS)
+DESIGN_KERNELS = ("mapper_carries", "mapper_carries_backward", *MAPPER_KERNELS)
 SCAN_KERNELS = ("affine_scan",)
 SERVE_KERNELS = ("flash_attention_sm90", "ssd_chunk_scan", "selective_scan")
 # bf16 attention and the scans, forward (their backwards are plain PyTorch)
@@ -3591,6 +3689,8 @@ META = {  # kernel -> (source, the TPU kernel it replaces)
     "mapper_carries": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:134"),
     "mapper_carries_backward": ("src/repro_torch/kernels/csrc/affine_scan.cu", "src/repro/kernels/sscan.py:186"),
     "popsim": ("src/repro_torch/kernels/csrc/popsim.cu", "src/repro/kernels/popsim_kernel.py:152"),
+    "mapper_intrinsics": ("src/repro_torch/kernels/csrc/mapper.cu", "none (XLA fused)"),
+    "mapper_finish": ("src/repro_torch/kernels/csrc/mapper.cu", "none (XLA fused)"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention.py:88"),
@@ -3737,7 +3837,7 @@ def main() -> int:
             bound_ms=bound, bound_by=by, bound_terms_ms=terms, library_ms=r.get("library_ms"),
         ))
         for key in ("ms_by_prompt", "ms_by_kernel", "ms_by_P", "ms_by_shape", "bound_ms_by_shape",
-                    "ms_with_entering_states"):
+                    "plain_ms_by_shape", "max_rel_err", "ms_with_entering_states"):
             if key in r:
                 kernels[-1][key] = r[key]
         host = f", host path {r['host_ms']:.6f} ms per call" if "host_ms" in r else ""

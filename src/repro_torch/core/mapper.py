@@ -33,7 +33,11 @@ none.  Reductions run over the vertex axis.
   * ``"assoc"``  — the prefix-scan formulation above.  Both carries go
     through one call of ``kernels.sscan.mapper_carries`` (K1): on a CUDA
     tensor one kernel launch forward and one for the closed-form backward,
-    on a CPU tensor their plain doubling scans;
+    on a CPU tensor their plain doubling scans.  Where the call needs no
+    gradient and its CUDA float32 inputs have a layout the kernels index
+    (:func:`fused`), the intrinsics and the gates and reductions around K1
+    are one kernel launch each as well (``csrc/mapper.cu``); otherwise they
+    are the torch stages below;
   * ``"pallas"`` — the reference package's name for the kernel dispatch;
     here it is the same computation as ``"assoc"``;
   * ``"ref"``    — the sequential loop over vertices with the whole vertex
@@ -41,6 +45,7 @@ none.  Reductions run over the vertex axis.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -49,6 +54,7 @@ from repro_torch import instrument
 from repro_torch.core.dgen import ConcreteHW
 from repro_torch.core.graph import Graph
 from repro_torch.core.params import COMP_IDX, MEM_IDX, TensorTree, const, max_const
+from repro_torch.kernels import mapper_kernel
 from repro_torch.kernels.ref import affine_scan_reference, minaffine_scan_reference
 from repro_torch.kernels.sscan import mapper_carries
 
@@ -139,9 +145,9 @@ def _hw(chw: ConcreteHW) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def _vertex_intrinsics(chw: ConcreteHW, g: Graph, cfg: MapperCfg) -> dict:
-    """Everything MAPVERTEX computes that does not depend on the carry."""
-    h = _hw(chw)
+def _vertex_intrinsics(h: dict, g: Graph, cfg: MapperCfg) -> dict:
+    """Everything MAPVERTEX computes that does not depend on the carry, from
+    the design's fields as ``_hw`` gives them."""
     freq = h["freq"]
     cap_gbuf = h["cap"] * cfg.headroom
     bw = h["bw"]  # [..., 1, N_MEM] bytes/s
@@ -209,11 +215,10 @@ def _vertex_intrinsics(chw: ConcreteHW, g: Graph, cfg: MapperCfg) -> dict:
     )
 
 
-def _vertex_exec(chw: ConcreteHW, g: Graph, cfg: MapperCfg, iv: dict,
+def _vertex_exec(h: dict, g: Graph, cfg: MapperCfg, iv: dict,
                  occ_prev: torch.Tensor, bw_prev: torch.Tensor) -> dict:
     """Per-vertex gates, exposed time and cycles — elementwise from the
     prefix carries."""
-    h = _hw(chw)
     freq = h["freq"]
 
     # ---------------- prefetch / streaming gates (Alg. 7) -------------------
@@ -241,10 +246,10 @@ def _bw_util(used_bw: torch.Tensor, cycles_v: torch.Tensor, total_cyc: torch.Ten
     return torch.stack([z, gbuf, z], -1)
 
 
-def _vertex_finish(chw: ConcreteHW, g: Graph, cfg: MapperCfg, iv: dict,
+def _vertex_finish(h: dict, g: Graph, cfg: MapperCfg, iv: dict,
                    occ_prev: torch.Tensor, bw_prev: torch.Tensor) -> MapState:
     """The reductions into MapState, from the shared per-vertex execution."""
-    ex = _vertex_exec(chw, g, cfg, iv, occ_prev, bw_prev)
+    ex = _vertex_exec(h, g, cfg, iv, occ_prev, bw_prev)
     cycles_v = ex["cycles_v"]
     total_cyc = torch.sum(cycles_v, -1)
     return MapState(
@@ -287,14 +292,147 @@ def _carry_prefixes(chw: ConcreteHW, cfg: MapperCfg, iv: dict) -> tuple[torch.Te
     return mapper_carries(iv["alloc_gbuf"], iv["bw_x"], chw.capacity[..., _GBUF], _OCC_DECAY, _BW_DECAY, _BW_GAIN)
 
 
+# --------------------------------------------------------------------------- #
+# the no-gradient CUDA path: the kernels around K1 (kernels/mapper_kernel.py)
+# --------------------------------------------------------------------------- #
+
+GRAPH_FIELDS = ("n_comp", "n_read", "n_write", "n_alloc", "dims")
+_GRAPH_WIDTHS = (4, 3, 3, 3, 3)  # the packed graph columns, in GRAPH_FIELDS order
+_HW_COLS = {"freq": 1, "cap": 1, "bw": 3, "lat": 3, "fpc": 4, "sys_x": 1, "sys_y": 1}  # _hw's, packed in order
+_HW_VECTORS = ("bw", "lat", "fpc")  # [..., 1, k] in _hw; the others [..., 1]
+_HW_FIELDS = ("frequency", "capacity", "mem_bw", "read_latency", "write_latency", "flops_per_cycle", "sys_x",
+              "sys_y")  # the ConcreteHW fields _hw reads
+
+
+@dataclass(frozen=True)
+class Fused:
+    """A call's inputs packed for the kernels."""
+
+    graph: torch.Tensor  # [Gn, V, GRAPH_COLS]
+    designs: torch.Tensor  # [Hn, DESIGN_COLS]
+    span: int  # rows a design spans: row r is design r // span against graph row r % Gn
+    lead: tuple  # the rows' shape (the broadcast of the designs' and the graph's leading axes)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """A plain (not a DTensor, not a fake) CUDA float32 tensor."""
+    return type(t) in (torch.Tensor, torch.nn.Parameter) and t.is_cuda and t.dtype == torch.float32
+
+
+def fused(chw: ConcreteHW, g: Graph) -> Fused | None:
+    """The packed inputs when the kernels apply to ``map_workload(chw, g)`` on
+    the prefix-scan path, else None (the torch stages run).  They apply where
+    every tensor the mapper reads is a plain CUDA float32 tensor, no gradient
+    is needed (grad mode off, or no input requires grad), and :func:`pack`
+    takes the layout."""
+    ts = [*(getattr(chw, f) for f in _HW_FIELDS), *(getattr(g, f) for f in GRAPH_FIELDS)]
+    if not all(_on_card(t) for t in ts):
+        return None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return None
+    return pack(chw, g)
+
+
+def pack(chw: ConcreteHW, g: Graph) -> Fused | None:
+    """Pack the design's fields as ``_hw`` gives them and the graph, on their
+    device, if the kernels index their layout, else None: the graph's arrays
+    share their leading axes, which broadcast against the designs' as a suffix
+    of the rows' shape, and the designs' leading axes are a prefix of it
+    followed by 1s (so [P, 1] or [] against a [W, V] or [V] graph, and [nb, 1]
+    against [nb, W, V])."""
+    gr = [getattr(g, f) for f in GRAPH_FIELDS]
+    if any(t.ndim < 2 or t.shape[-1] != w or t.shape[:-1] != gr[0].shape[:-1] for t, w in zip(gr, _GRAPH_WIDTHS)):
+        return None
+    h = _hw(chw)
+    if any(h[k].shape[-1] != w for k, w in _HW_COLS.items()):
+        return None
+    V = gr[0].shape[-2]
+    G = tuple(gr[0].shape[:-2])
+    try:
+        H = tuple(torch.broadcast_shapes(*(h[k].shape[:-2 if k in _HW_VECTORS else -1] for k in _HW_COLS)))
+        lead = tuple(torch.broadcast_shapes(H, G))
+    except RuntimeError:
+        return None
+    n = len(lead)
+    Hp, Gp = (1,) * (n - len(H)) + H, (1,) * (n - len(G)) + G
+    k = max((d + 1 for d in range(n) if Hp[d] != 1), default=0)  # designs: lead[:k], then 1s
+    j = min((d for d in range(n) if Gp[d] != 1), default=n)  # graph rows: 1s, then lead[j:]
+    if Hp[:k] != lead[:k] or Gp[j:] != lead[j:] or V == 0 or math.prod(lead) == 0:
+        return None
+    graph = torch.cat(gr, -1).reshape(-1, V, mapper_kernel.GRAPH_COLS)
+    cols = [(h[k] if k in _HW_VECTORS else h[k][..., None]).expand(*H, 1, w) for k, w in _HW_COLS.items()]
+    designs = torch.cat(cols, -1).reshape(-1, mapper_kernel.DESIGN_COLS)
+    return Fused(graph, designs, math.prod(lead[k:]), lead)
+
+
+def _rows(graph: torch.Tensor, designs: torch.Tensor, span: int) -> tuple[dict, Graph]:
+    """The rows of a packed call, for the ops' plain versions: row r's design
+    fields as ``_hw`` gives them, from design r // span, and its graph, from
+    graph row r % Gn (op kinds and edges, which the stages never read, zero)."""
+    R, V = designs.shape[0] * span, graph.shape[1]
+    r = torch.arange(R, device=graph.device)
+    d = designs[r // span][:, None, :]  # [R, 1, DESIGN_COLS]: a vertex axis to broadcast against
+    parts = torch.split(d, tuple(_HW_COLS.values()), -1)
+    h = {k: x if k in _HW_VECTORS else x[..., 0] for k, x in zip(_HW_COLS, parts)}
+    cols = dict(zip(GRAPH_FIELDS, torch.split(graph[r % graph.shape[0]], _GRAPH_WIDTHS, -1)))
+    g = Graph(**cols, op_kind=torch.zeros(R, V, dtype=torch.int32, device=graph.device),
+              edges=torch.zeros(0, 2, dtype=torch.int32, device=graph.device))
+    return h, g
+
+
+@mapper_kernel.mapper_intrinsics_op.register_kernel("cpu")
+def _mapper_intrinsics_plain(graph: torch.Tensor, designs: torch.Tensor, span: int, headroom: float) -> torch.Tensor:
+    mapper_kernel.check(graph, designs, span)
+    h, g = _rows(graph, designs, span)
+    return _vertex_intrinsics(h, g, MapperCfg(headroom=headroom))["bw_x"].contiguous()
+
+
+@mapper_kernel.mapper_finish_op.register_kernel("cpu")
+def _mapper_finish_plain(graph: torch.Tensor, designs: torch.Tensor, occ_prev: torch.Tensor, bw_prev: torch.Tensor,
+                         span: int, headroom: float, prefetch: bool,
+                         streaming: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    mapper_kernel.check(graph, designs, span, occ_prev, bw_prev)
+    h, g = _rows(graph, designs, span)
+    cfg = MapperCfg(headroom=headroom, prefetch=prefetch, streaming=streaming)
+    ms = _vertex_finish(h, g, cfg, _vertex_intrinsics(h, g, cfg), occ_prev, bw_prev)
+    return torch.stack([getattr(ms, f) for f in mapper_kernel.SUMS]), ms.bw_util.contiguous()
+
+
+def _fused_intrinsics(g: Graph, cfg: MapperCfg, fz: Fused) -> dict:
+    """What K1 takes, from the intrinsics kernel: bw_x, and alloc from the graph."""
+    bw_x = mapper_kernel.mapper_intrinsics_op(fz.graph, fz.designs, fz.span, cfg.headroom)
+    return dict(alloc_gbuf=g.n_alloc[..., _GBUF], bw_x=bw_x.view(*fz.lead, g.n_vertices))
+
+
+def _fused_finish(g: Graph, cfg: MapperCfg, fz: Fused, occ_prev: torch.Tensor, bw_prev: torch.Tensor) -> MapState:
+    """The MapState from the finish kernel's sums; the graph-only fields keep
+    their torch reductions."""
+    R, V = math.prod(fz.lead), g.n_vertices
+    sums, bw_util = mapper_kernel.mapper_finish_op(fz.graph, fz.designs, occ_prev.reshape(R, V),
+                                                   bw_prev.reshape(R, V), fz.span, cfg.headroom, cfg.prefetch,
+                                                   cfg.streaming)
+    fields = {f: sums[i].view(fz.lead) for i, f in enumerate(mapper_kernel.SUMS)}
+    return MapState(
+        reads=torch.sum(g.n_read, -2),
+        writes=torch.sum(g.n_write, -2),
+        comp_ops=torch.sum(g.n_comp, -2),
+        peak_alloc=torch.amax(g.n_alloc, -2),
+        bw_util=bw_util.view(*fz.lead, 3),
+        **fields,
+    )
+
+
 def _map_workload_assoc(chw: ConcreteHW, g: Graph, cfg: MapperCfg) -> MapState:
     dev = chw.frequency.device
     with instrument.span("mapper.intrinsics", dev):
-        iv = _vertex_intrinsics(chw, g, cfg)
+        fz = fused(chw, g)
+        iv = _vertex_intrinsics(_hw(chw), g, cfg) if fz is None else _fused_intrinsics(g, cfg, fz)
     with instrument.span("mapper.carries", dev):
         occ_prev, bw_prev = _carry_prefixes(chw, cfg, iv)
     with instrument.span("mapper.finish", dev):
-        return _vertex_finish(chw, g, cfg, iv, occ_prev, bw_prev)
+        if fz is None:
+            return _vertex_finish(_hw(chw), g, cfg, iv, occ_prev, bw_prev)
+        return _fused_finish(g, cfg, fz, occ_prev, bw_prev)
 
 
 def map_workload_breakdown(chw: ConcreteHW, g: Graph, cfg: MapperCfg = MapperCfg()) -> dict:
@@ -311,9 +449,9 @@ def map_workload_breakdown(chw: ConcreteHW, g: Graph, cfg: MapperCfg = MapperCfg
       * ``t_level`` [..., N_MEM] — total demanded transfer time per level;
       * ``active`` [..., V] — 1.0 for real vertices, 0.0 for padding.
     """
-    iv = _vertex_intrinsics(chw, g, cfg)
+    iv = _vertex_intrinsics(_hw(chw), g, cfg)
     occ_prev, bw_prev = _carry_prefixes(chw, cfg, iv)
-    ex = _vertex_exec(chw, g, cfg, iv, occ_prev, bw_prev)
+    ex = _vertex_exec(_hw(chw), g, cfg, iv, occ_prev, bw_prev)
     return dict(
         time_v=ex["t_vertex"],
         cycles_v=ex["cycles_v"],

@@ -4,6 +4,9 @@ affine_scan     — K1: the mapper's two Alg.-7 carries (buffer occupancy and
                   bandwidth EMA) in one launch forward and one backward
                   (``sscan.mapper_carries``), and the bare affine scan
                   (``csrc/affine_scan.cu``)
+mapper          — the mapper's carry-free stages around K1 on the no-gradient
+                  path, intrinsics and gates-and-reductions
+                  (``mapper_kernel.py``, ``csrc/mapper.cu``)
 popsim          — DSim population evaluation (``csrc/popsim.cu``)
 flash_attention — GQA attention with an online softmax (``flash_attention.py``,
                   ``csrc/flash_attention.cu``)

@@ -21,7 +21,8 @@ This is the one module of ``repro_torch`` that compiles or loads CUDA code.
   * :data:`LAUNCHES` / :func:`reset_launches` — one count per kernel, bumped
     by its wrapper exactly where it launches the kernel.  ``affine_scan.cu``
     holds three kernels: the bare affine scan and the mapper's two carries,
-    forward and backward, each counted under its own name.
+    forward and backward, each counted under its own name; ``mapper.cu``
+    two, ``mapper_intrinsics`` and ``mapper_finish``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ SOURCES = {
     "flash_attention_sm90": "flash_attention_sm90.cu",
     "ssd_chunk_scan": "ssd.cu",
     "selective_scan": "selective_scan.cu",
+    "mapper": "mapper.cu",
 }
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
@@ -58,13 +60,14 @@ NVCC_FLAGS = (
 # as in the plain PyTorch versions they are held against, where a one-ulp move
 # upstream of a ceil moves whole cycles.  The model kernels keep nvcc's default
 # contraction: they are held against their plain versions with a tolerance.
-EXTRA_FLAGS = {"affine_scan": ("--fmad=false",), "popsim": ("--fmad=false",)}
+EXTRA_FLAGS = {"affine_scan": ("--fmad=false",), "popsim": ("--fmad=false",), "mapper": ("--fmad=false",)}
 
 
 def flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
-LAUNCHES: dict[str, int] = {name: 0 for name in (*SOURCES, "mapper_carries", "mapper_carries_backward")}
+LAUNCHES: dict[str, int] = {name: 0 for name in (*(n for n in SOURCES if n != "mapper"), "mapper_carries",
+                                                  "mapper_carries_backward", "mapper_intrinsics", "mapper_finish")}
 BUILD_LOG: dict[str, str] = {}  # kernel name -> nvcc/ptxas output of its build
 BUILD_SECONDS: dict[str, float] = {}  # kernel name -> seconds from the builds' start to its end
 
@@ -241,6 +244,12 @@ _ENTRY = {
     "ssd_chunk_scan": {"ssd_chunk_scan_launch": [_P] * 8 + [_I] * 7 + [_P]},
     # u, dt, A, B, C, D, y, state, Bt, S, C, N, bf16, stream
     "selective_scan": {"selective_scan_launch": [_P] * 9 + [_I] * 5 + [_P]},
+    "mapper": {
+        # graph, designs, bw_x, R, V, span, Gn, headroom, stream
+        "mapper_intrinsics_launch": [_P, _P, _P, _L, _I, _L, _L, _F, _P],
+        # graph, designs, occ_prev, bw_prev, sums, bw_util, R, V, span, Gn, headroom, prefetch, streaming, stream
+        "mapper_finish_launch": [_P] * 6 + [_L, _I, _L, _L, _F, _I, _I, _P],
+    },
 }
 
 

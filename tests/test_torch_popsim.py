@@ -136,7 +136,7 @@ class TestPopsimPlain:
         factor[:, tpk._GBUF] = torch.from_numpy(_bw_scales(BW_P))
         chw = dataclasses.replace(chw, mem_bw=chw.mem_bw * factor)
         cfg = tmapper.MapperCfg()
-        iv = tmapper._vertex_intrinsics(chw, g, cfg)
+        iv = tmapper._vertex_intrinsics(tmapper._hw(chw), g, cfg)
         _, bw_prev = tmapper._carry_prefixes(chw, cfg, iv)
         gate = (bw_prev < tpk.HEADROOM)[:, iv["active"] > 0]
         flips = (gate[:, 1:] != gate[:, :-1]).sum(-1)
